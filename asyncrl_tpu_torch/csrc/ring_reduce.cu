@@ -1,194 +1,142 @@
-// Bidirectional ring all-reduce over ranks that share one card, for Hopper
-// (sm_90a).
+// The bidirectional ring all-reduce of ranks that share one card, as one
+// pass in the ring's fold order, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel asyncrl_tpu/ops/ring_reduce.py::ring_all_reduce_pallas
 // (body _ring_kernel), which sends chunks between chips by remote copies into
-// double-buffered VMEM landing slots. Here every rank's payload lives in one
-// tensor, x[n ranks][2 dirs][n chunks][chunk] f32, and out has the same shape:
-// out[r] is what rank r ends the ring with, the same bits for every r.
+// VMEM landing slots. Here every rank's payload is a row of one tensor,
+// x[n ranks][stride] f32 (D floats used), and the result is written once,
+// out[D]: what every rank ends the ring with.
 //
-// Schedule: the lax twin's (_ring_passes_lax), per direction, with sign +1
-// for direction 0 (rank r sends to r+1) and -1 for direction 1. Reduce-scatter
-// step s (s = 0 .. n-2): rank r receives the partial of chunk
-// c = r - sign*(s+1) from its left neighbour and folds it as
-// local + incoming (__fadd_rn), then sends the sum on; the last step leaves
-// the fully reduced chunk r + sign. All-gather step s: rank r receives the
-// reduced chunk r - sign*s, stores it and passes it on. So the fold order is
-// fixed and the result equals the plain version (and JAX's lax twin) bit for
-// bit: there are only adds, and the schedule orders them.
+// What the ring computes. The payload is cut as the JAX module cuts it
+// (_to_chunks): flat index i lies in direction dir = i / (n*chunk) and in
+// chunk c = (i / chunk) % n, chunk = S*128 with S a multiple of 8, so a chunk
+// is a multiple of 1024 floats. The lax twin's schedule (_ring_passes_lax:
+// reduce-scatter step s sends chunk idx - sign*s and folds the chunk
+// idx - sign*(s+1) as local + incoming, sign +1 for direction 0 and -1 for
+// direction 1) starts chunk c on rank c and folds it in on ranks c+sign,
+// c+2*sign, ...; the all-gather only copies. So every rank ends with
 //
-// Grid (2*G, n): blockIdx.y is the rank, blockIdx.x the direction and the
-// column slice g of every chunk that the block owns (tiles of 256 floats
-// g, g+G, g+2G, ...). Block (g, dir, r) only exchanges with (g, dir, r+-1),
-// so the grid is 2G independent rings and needs no grid-wide barrier. A block
-// spins on its neighbour, so all blocks must be resident at once: the launch
-// is cooperative (refused, not hung, when the grid does not fit) and G is
-// picked from the occupancy so that it fits.
+//   acc = x[c][i];  for k = 1 .. n-1:  acc = x[(c + k*sign) mod n][i] + acc
 //
-// Landing slots: each (receiving rank, dir) has its own slot for each of the
-// 2(n-1) steps in device memory, where the TPU kernel alternates two VMEM
-// slots. No slot is reused within a call, so no "consumed" acknowledgement
-// is needed; calls on one stream run one after the other.
+// one rounded f32 add each (__fadd_rn, whatever -fmad says). This kernel
+// computes exactly that, so it equals the plain version (ops/ring_reduce.py)
+// and JAX's lax twin bit for bit.
 //
-// Arrival: one flag per (receiving rank, dir, step, g). The sender writes the
-// slot, __syncthreads, then thread 0 fences and release-stores the call's
-// epoch. The receiver's thread 0 spins on an acquire load until it reads the
-// epoch, __syncthreads, and all threads read the slot through L2 (__ldcg).
-// The wrapper bumps the epoch each call, so the flags are zeroed only once.
-// A wait that outlasts about a second traps, so a broken schedule fails the
-// launch instead of hanging the card.
+// Bound on this card: memory. The least work is to read the n payloads once
+// and write the sum once, 4*(n+1)*D bytes (at n=8 and D = 1.09M, 39 MB:
+// 11.7 us at 3.35 TB/s); the (n-1)*D adds take far less. Run step by step
+// as on several cards, the ring moves about 3x the payload through landing
+// slots in 2(n-1) dependent flag hops; on one card that buys nothing, so the
+// design is one elementwise pass:
 //
-// Bound on this card: memory. The function reads n payloads and writes n
-// results (8*n*D_padded bytes; at n=8 and D = 1.09M about 70 MB, ~21 us at
-// 3.35 TB/s). The ring itself moves more: each of the 2(n-1) steps writes and
-// reads a slot and reads or writes a local chunk, about 3x the payload per
-// rank and direction. On one card the ring's cross-card bandwidth argument
-// does not apply; it is the multi-card schedule run where its data lives.
-// Vector loads, overlap of steps and peer pointers are later work.
+// - a block of 128 threads owns a tile of 512 consecutive elements, so a
+//   tile never straddles a chunk and c and sign are the tile's;
+// - each thread owns 4 elements of the tile: 4 consecutive ones (one 16-byte
+//   load a rank) where the row stride is a multiple of 4 floats and the rows
+//   are 16-byte aligned, else 4 scalars 128 apart (each warp load coalesced);
+// - all n loads of a thread are independent and issued before the fold, so
+//   each thread has up to 4n loads in flight;
+// - rows are read in place through the stride (no padded copy; padded
+//   index = flat index, elements >= D are masked), and the result is
+//   written once. No slots, flags or cooperative launch.
 //
-// The rank body takes per-rank base pointers (its input and output, the
-// slots and flags it receives into, those of the neighbour it sends into), so
-// a multi-card version can hand it peer pointers instead.
+// Ranks on distinct cards need a per-step fold between transfers (NCCL
+// send/recv, or a ring of landing slots and release/acquire flags handed
+// peer pointers); that design waits for a machine with several cards.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr long long kSpinLimit = 1LL << 24;  // polls of >= 32 ns each: about a second
+constexpr int kThreads = 128;
+constexpr int kPerThread = 4;
+constexpr int kTile = kThreads * kPerThread;  // 512 floats; a chunk is a multiple of 1024
 
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
+// The rank whose value is folded k-th at an element of chunk c.
+__device__ __forceinline__ int fold_rank(int c, int k, int sign, int n) {
+  return ((c + k * sign) % n + n) % n;
 }
 
-__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ int wrap(int a, int n) { return ((a % n) + n) % n; }
-
-// Every thread's writes of the slot are done; then publish the epoch.
-__device__ __forceinline__ void publish(unsigned* flag, unsigned epoch) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    st_release(flag, epoch);
-  }
-}
-
-// Thread 0 waits for the epoch; then every thread may read the slot.
-__device__ __forceinline__ void wait_for(const unsigned* flag, unsigned epoch) {
-  if (threadIdx.x == 0) {
-    long long spins = 0;
-    while (ld_acquire(flag) != epoch) {
-      __nanosleep(32);
-      if (++spins > kSpinLimit) __trap();
+// A thread's 4 elements of one rank's row: 4 consecutive floats at `i` (one
+// 16-byte load), or 4 floats 128 apart from `i` (scalar loads; those at or
+// past `size` read as 0 and are never stored).
+template <bool kVector>
+__device__ __forceinline__ float4 load4(const float* row, long long i, long long size) {
+  if constexpr (kVector) {
+    return __ldg(reinterpret_cast<const float4*>(row + i));
+  } else {
+    float v[kPerThread];
+#pragma unroll
+    for (int e = 0; e < kPerThread; ++e) {
+      const long long j = i + e * kThreads;
+      v[e] = j < size ? __ldg(row + j) : 0.0f;
     }
-  }
-  __syncthreads();
-}
-
-// One rank's ring in one direction over the column slice g of every chunk.
-// x_r, out_r: [n][chunk] of this rank and direction. recv/recv_flag: the
-// slots [2(n-1)][chunk] and flags [2(n-1)][G] this rank receives into;
-// send/send_flag: those of the neighbour it sends to.
-__device__ void rank_body(const float* __restrict__ x_r, float* __restrict__ out_r,
-                          const float* recv, float* send, const unsigned* recv_flag,
-                          unsigned* send_flag, int r, int sign, int n, int chunk,
-                          int g, int G, unsigned epoch) {
-  const int first = g * kThreads + threadIdx.x;
-  const int stride = G * kThreads;
-  // Reduce-scatter step 0 sends this rank's own chunk r.
-  for (int e = first; e < chunk; e += stride) send[e] = x_r[static_cast<size_t>(r) * chunk + e];
-  publish(send_flag, epoch);
-  for (int s = 0; s < n - 1; ++s) {
-    wait_for(recv_flag + static_cast<size_t>(s) * G, epoch);
-    const float* in = recv + static_cast<size_t>(s) * chunk;
-    const float* local = x_r + static_cast<size_t>(wrap(r - sign * (s + 1), n)) * chunk;
-    float* next = send + static_cast<size_t>(s + 1) * chunk;
-    if (s < n - 2) {
-      for (int e = first; e < chunk; e += stride) next[e] = __fadd_rn(local[e], __ldcg(in + e));
-    } else {
-      // Chunk r + sign is fully reduced: store it, and send it as the first
-      // all-gather step (slot n-1).
-      float* mine = out_r + static_cast<size_t>(wrap(r + sign, n)) * chunk;
-      for (int e = first; e < chunk; e += stride) {
-        const float acc = __fadd_rn(local[e], __ldcg(in + e));
-        mine[e] = acc;
-        next[e] = acc;
-      }
-    }
-    publish(send_flag + static_cast<size_t>(s + 1) * G, epoch);
-  }
-  // All-gather step s receives reduced chunk r - sign*s into slot n-1+s.
-  for (int s = 0; s < n - 1; ++s) {
-    wait_for(recv_flag + static_cast<size_t>(n - 1 + s) * G, epoch);
-    const float* in = recv + static_cast<size_t>(n - 1 + s) * chunk;
-    float* dst = out_r + static_cast<size_t>(wrap(r - sign * s, n)) * chunk;
-    if (s < n - 2) {
-      float* next = send + static_cast<size_t>(n + s) * chunk;
-      for (int e = first; e < chunk; e += stride) {
-        const float v = __ldcg(in + e);
-        dst[e] = v;
-        next[e] = v;
-      }
-      publish(send_flag + static_cast<size_t>(n + s) * G, epoch);
-    } else {
-      for (int e = first; e < chunk; e += stride) dst[e] = __ldcg(in + e);
-    }
+    return make_float4(v[0], v[1], v[2], v[3]);
   }
 }
 
+__device__ __forceinline__ float4 add4(float4 v, float4 acc) {
+  return make_float4(__fadd_rn(v.x, acc.x), __fadd_rn(v.y, acc.y), __fadd_rn(v.z, acc.z),
+                     __fadd_rn(v.w, acc.w));
+}
+
+template <bool kVector>
 __global__ void __launch_bounds__(kThreads)
-    ring_all_reduce_kernel(const float* x, float* out, float* slots, unsigned* flags, int n,
-                           int chunk, int G, unsigned epoch) {
-  const int g = blockIdx.x % G;
-  const int dir = blockIdx.x / G;
-  const int r = blockIdx.y;
-  const int sign = dir == 0 ? 1 : -1;
-  const int next = wrap(r + sign, n);
-  const size_t steps = 2 * static_cast<size_t>(n - 1);
-  const size_t payload = static_cast<size_t>(n) * chunk;  // one rank, one direction
-  const size_t lane_r = static_cast<size_t>(r) * 2 + dir;
-  const size_t lane_next = static_cast<size_t>(next) * 2 + dir;
-  rank_body(x + lane_r * payload, out + lane_r * payload, slots + lane_r * steps * chunk,
-            slots + lane_next * steps * chunk, flags + lane_r * steps * G + g,
-            flags + lane_next * steps * G + g, r, sign, n, chunk, g, G, epoch);
+    ring_all_reduce_kernel(const float* __restrict__ x, float* __restrict__ out,
+                           long long stride, long long size, int n, long long chunk) {
+  constexpr int kBatch = 8;  // loads issued before their folds
+  const long long tile = static_cast<long long>(blockIdx.x) * kTile;
+  const int c = static_cast<int>((tile / chunk) % n);
+  const int sign = tile / (n * chunk) == 0 ? 1 : -1;
+  const long long i = tile + (kVector ? kPerThread * threadIdx.x : threadIdx.x);
+  if (i >= size) return;
+  // With 16-byte loads the row stride is a multiple of 4 floats, so
+  // i..i+3 lie inside a row even past D, and out holds a multiple of 4.
+  float4 acc = load4<kVector>(x + static_cast<size_t>(c) * stride, i, size);
+  for (int k0 = 1; k0 < n; k0 += kBatch) {
+    float4 v[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      if (k0 + j < n) {
+        v[j] = load4<kVector>(x + static_cast<size_t>(fold_rank(c, k0 + j, sign, n)) * stride,
+                              i, size);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      if (k0 + j < n) acc = add4(v[j], acc);
+    }
+  }
+  if constexpr (kVector) {
+    *reinterpret_cast<float4*>(out + i) = acc;
+  } else {
+    const float a[kPerThread] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+    for (int e = 0; e < kPerThread; ++e) {
+      if (i + e * kThreads < size) out[i + e * kThreads] = a[e];
+    }
+  }
 }
 
 }  // namespace
 
-// Column slices per (rank, direction) for a cooperative grid of n ranks:
-// as many as the card holds resident at once, at most one per 256-float tile
-// of a chunk. Returns a cudaError (0 on success).
-extern "C" int ring_all_reduce_blocks(int n, int chunk, int* blocks) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int coop = 0, sms = 0, per_sm = 0;
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return static_cast<int>(cudaErrorNotSupported);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ring_all_reduce_kernel, kThreads, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (chunk + kThreads - 1) / kThreads;
-  int g = per_sm * sms / (2 * n);
-  if (g > tiles) g = tiles;
-  if (g < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  *blocks = g;
-  return 0;
-}
-
-// Launches cooperatively on `stream`; returns the launch's cudaError (0 on
-// success). A grid that cannot be resident at once is refused here.
-extern "C" int ring_all_reduce_launch(const float* x, float* out, float* slots, unsigned* flags,
-                                      int n, int chunk, int G, unsigned epoch, void* stream) {
-  void* args[] = {&x, &out, &slots, &flags, &n, &chunk, &G, &epoch};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)ring_all_reduce_kernel, dim3(2 * G, n), dim3(kThreads), args,
-      0, static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
+// x: n rows `stride` floats apart, the first `size` of each used; out:
+// `size` floats rounded up to a multiple of 4. `chunk` is the JAX
+// geometry's chunk length (a multiple of 1024). `vector` takes the 16-byte
+// path: the caller sets it only where x is 16-byte aligned, the stride is a
+// multiple of 4 floats and every row can be read up to a multiple of 4.
+// Launches on `stream`; returns cudaGetLastError() (0 on success).
+extern "C" int ring_all_reduce_launch(const float* x, float* out, long long stride,
+                                      long long size, int n, long long chunk, bool vector,
+                                      void* stream) {
+  const unsigned blocks = static_cast<unsigned>((size + kTile - 1) / kTile);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vector) {
+    ring_all_reduce_kernel<true><<<blocks, kThreads, 0, s>>>(x, out, stride, size, n, chunk);
+  } else {
+    ring_all_reduce_kernel<false><<<blocks, kThreads, 0, s>>>(x, out, stride, size, n, chunk);
+  }
   return static_cast<int>(cudaGetLastError());
 }

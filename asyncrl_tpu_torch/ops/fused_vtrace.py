@@ -7,8 +7,9 @@ TPU kernel). Three pieces live here:
 - :func:`fused_vtrace_plain`, the plain PyTorch version: the same per-step
   arithmetic as a Python loop over ``t``. The CPU path and the yardstick the
   CUDA kernel is held to, bit for bit.
-- the CUDA kernel, ``csrc/fused_vtrace.cu`` (one thread per batch column,
-  walking time in registers; its header gives the design and the bound).
+- the CUDA kernel, ``csrc/fused_vtrace.cu`` (a block stages 32 columns by
+  up to 32 time steps in shared memory, double-buffered, and walks only the
+  recurrence serially; its header gives the design and the bound).
 - :func:`fused_vtrace`, the wrapper: checks its inputs, runs the plain
   version for CPU tensors and launches the kernel for CUDA tensors. It never
   falls back from one to the other. :data:`launches` counts kernel launches.
@@ -22,6 +23,7 @@ own before the add that consumes it.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -81,18 +83,22 @@ def _check(inputs: tuple[torch.Tensor, ...]) -> None:
         )
 
 
+@functools.cache
+def _kernel():
+    fn = cuda_build.load("fused_vtrace").fused_vtrace_launch
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _launch(inputs: tuple[torch.Tensor, ...]) -> tuple[torch.Tensor, ...]:
     global launches
     rewards = inputs[2]
     T, B = rewards.shape
     outs = tuple(torch.empty_like(rewards) for _ in range(3))
-    lib = cuda_build.load("fused_vtrace")
-    fn = lib.fused_vtrace_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(rewards.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*(x.data_ptr() for x in inputs + outs), T, B, stream)
+        rc = _kernel()(*(x.data_ptr() for x in inputs + outs), T, B, stream)
     if rc != 0:
         raise RuntimeError(f"fused_vtrace kernel launch failed: cudaError {rc}")
     launches += 1

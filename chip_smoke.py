@@ -12,8 +12,10 @@ From the root of the repository, on a machine with a CUDA GPU, ``nvcc``
    training paths give it (bit for bit) and times both: the fused V-trace
    tail (B1), the reverse scan (B2) and its bulk-copy twin (B3), which are
    also held against each other, and the ring all-reduce (B4) over 2, 4 and
-   8 ranks at both mesh phases' gradient sizes and a ragged one, with a
-   plain sum over the ranks as the library call;
+   8 ranks at both mesh phases' gradient sizes and a ragged one, in the
+   gradient path's layout and as a contiguous tensor, with a plain sum over
+   the ranks as the library call (warm, and with a cold L2 at the
+   flagship point);
 4. trains, each at the preset's full width, and checks that every update
    launched each of its path's kernels as often as the path says and the
    other kernels never, that the metrics are finite, and that the loss on
@@ -49,10 +51,12 @@ import time
 import torch
 
 # Path shapes (T, B) of the fused V-trace kernel (brax_ppo's GAE rides it
-# by default), and a ragged one.
+# by default; on the mesh phases each rank's shard), a ragged one, and one
+# longer than a time chunk whose rows are off the 16-byte grid.
 VTRACE_SHAPES = {
     "atari_impala": (32, 1024), "pong_impala": (32, 256), "brax_ppo": (64, 8192),
-    "ragged": (37, 1000),
+    "ragged": (37, 1000), "atari_impala_mesh8_rank": (32, 128),
+    "pong_impala_mesh8_rank": (32, 32), "long_ragged": (257, 1001),
 }
 # Path shapes of the scan kernels: brax_ppo's GAE, pong_impala's lax
 # V-trace, and a ragged [T, ...] whose 7 x 143 = 1001 columns leave every
@@ -61,6 +65,9 @@ SCAN_SHAPES = {"brax_ppo": (64, 8192), "pong_impala": (32, 256), "ragged": (37, 
 # Ring sizes of B4 (ranks sharing the card) and its ragged payload size.
 RING_RANKS = (2, 4, 8)
 RING_RAGGED = 1031
+# Floats of the scratch tensor written between calls to time B4 and its
+# library call with a cold L2 (50 MB on an H100): 128 MB.
+L2_FLUSH_FLOATS = 32 << 20
 MESH_RANKS = 8  # ranks of the mesh phases
 UPDATES = 4  # updates per training phase; the fps window is the last half
 # NVIDIA H100 SXM published peaks (data sheet, dense, at 700 W).
@@ -92,8 +99,10 @@ PROFILE_KEYS = {
     "fused_vtrace": "fused_vtrace_kernel(",
     "linear_scan": "linear_scan_kernel(",
     "linear_scan_dma": "linear_scan_dma_kernel(",
-    "ring_all_reduce": "ring_all_reduce_kernel(",
+    "ring_all_reduce": "ring_all_reduce_kernel<",
 }
+# The library call of B4, torch.sum over the ranks, in the profiler.
+SUM_PROFILE_KEY = "reduce_kernel"
 
 
 def log(msg: str) -> None:
@@ -201,6 +210,7 @@ def check_fused_vtrace() -> dict:
         rows[name] = {
             "T": T, "B": B, "max_abs_err": err,
             "ms": time_ms(lambda: fv.fused_vtrace(*args), reps=200),
+            "device_ms": device_ms(lambda: fv.fused_vtrace(*args), PROFILE_KEYS["fused_vtrace"]),
             "plain_ms": time_ms(lambda: fv.fused_vtrace_plain(*args), reps=3, trials=5),
             **bound(4 * (5 * T * B + B + 3 * T * B), 11 * T * B),
         }
@@ -280,44 +290,64 @@ def check_ring_bound(out: torch.Tensor, stacked: torch.Tensor, where: str) -> fl
 
 def check_ring_reduce(sizes: dict[str, int]) -> dict:
     """B4 vs its plain version, bit for bit, at every ring size and payload,
-    and the times of both and of the library call (one ``torch.sum`` over
-    the ranks: the same function, summed in another order)."""
+    in the gradient path's layout (16-byte loads) and as a contiguous
+    ``[n, D]`` (scalar loads where D is odd), and the times of both and of
+    the library call (one ``torch.sum`` over the ranks: the same function,
+    summed in another order), warm and, at the flagship point, with a cold
+    L2."""
     from asyncrl_tpu_torch.ops import ring_reduce as rr
 
+    flush = torch.empty(L2_FLUSH_FLOATS, device="cuda")
     rows = {}
     for n in RING_RANKS:
         for name, D in {**sizes, "ragged": RING_RAGGED}.items():
             g = torch.Generator(device="cuda").manual_seed(1_000_003 * n + D)
-            x = torch.randn(n, D, generator=g, device="cuda")
-            out = rr.ring_all_reduce(x)
+            contiguous = torch.randn(n, D, generator=g, device="cuda")
+            # The gradient path's layout (ring_all_reduce_grads).
+            x = rr.rows_buffer(n, D, "cuda").copy_(contiguous)
             ref = rr.ring_all_reduce_plain(x)
+            outs = {"grads_layout": rr.ring_all_reduce(x),
+                    "contiguous": rr.ring_all_reduce(contiguous)}
             torch.cuda.synchronize()
-            differ = int((out != ref).sum())
-            if differ or out.shape != x.shape:
-                raise AssertionError(
-                    f"ring_all_reduce n={n} {name} D={D}: {differ} elements differ from "
-                    "the plain version"
-                )
+            for layout, out in outs.items():
+                differ = int((out != ref).sum())
+                if differ or out.shape != x.shape:
+                    raise AssertionError(
+                        f"ring_all_reduce n={n} {name} D={D} ({layout}): {differ} elements "
+                        "differ from the plain version"
+                    )
+            out = outs["grads_layout"]
             err_vs_sum = check_ring_bound(out, x, f"ring_all_reduce n={n} {name}")
             if n == 2 and not torch.equal(out, (x[0] + x[1]).expand(2, D)):
                 raise AssertionError(f"ring_all_reduce n=2 {name}: not the two-operand sum")
-            # Bytes: the n payloads read once and the n results written once.
-            # Operations: n-1 adds an element make the one sum.
-            rows[(n, name)] = {
+            # Bytes: the n payloads read once and the one reduced vector
+            # written once (every rank's row is a view of it, as psum hands
+            # every rank one tensor). Operations: n-1 adds an element.
+            row = {
                 "n": n, "D": D, "D_padded": rr._to_chunks(x[:1], n).numel(),
                 "max_abs_err": float((out - ref).abs().max()),
                 "max_abs_err_vs_sum": err_vs_sum,
                 "ms": time_ms(lambda: rr.ring_all_reduce(x), reps=50),
                 "device_ms": device_ms(lambda: rr.ring_all_reduce(x), PROFILE_KEYS["ring_all_reduce"]),
+                "contiguous_ms": time_ms(lambda: rr.ring_all_reduce(contiguous), reps=50),
+                "contiguous_device_ms": device_ms(lambda: rr.ring_all_reduce(contiguous),
+                                                  PROFILE_KEYS["ring_all_reduce"]),
                 "plain_ms": time_ms(lambda: rr.ring_all_reduce_plain(x), reps=3, trials=5),
                 "library_ms": time_ms(lambda: torch.sum(x, 0), reps=50),
-                **bound(4 * 2 * n * D, (n - 1) * D),
+                "library_device_ms": device_ms(lambda: torch.sum(x, 0), SUM_PROFILE_KEY),
+                **bound(4 * (n + 1) * D, (n - 1) * D),
             }
-            log(f"ring_all_reduce n={n} {name} D={D}: bit-identical to plain, ranks agree, "
-                "within the fold bound of a sum" + (", = x0 + x1" if n == 2 else "") + "; "
-                + json.dumps(rows[(n, name)]))
-    # The training phases' peak memory then holds only their own slots.
-    rr.free_scratch()
+            if n == MESH_RANKS and name == "atari_impala":
+                # Each timed call after 128 MB of writes, so it reads its
+                # inputs from device memory and not from the L2.
+                row["cold_l2_device_ms"] = device_ms(
+                    lambda: (flush.zero_(), rr.ring_all_reduce(x)), PROFILE_KEYS["ring_all_reduce"])
+                row["cold_l2_library_device_ms"] = device_ms(
+                    lambda: (flush.zero_(), torch.sum(x, 0)), SUM_PROFILE_KEY)
+            rows[(n, name)] = row
+            log(f"ring_all_reduce n={n} {name} D={D}: bit-identical to plain in both layouts, "
+                "ranks agree, within the fold bound of a sum"
+                + (", = x0 + x1" if n == 2 else "") + "; " + json.dumps(row))
     return rows
 
 
@@ -396,12 +426,15 @@ def train_phase(phase: str, preset_name: str, overrides: dict, ranks: int,
 
     ring = {}
     if ranks > 1:
-        # The ranks' gradients on this fragment, reduced through B4 and
-        # through the plain ring: the same bits, every rank's row alike, and
-        # within the fold bound of a plain sum (psum).
+        # The ranks' gradients on this fragment, reduced through B4 (by the
+        # learner's entry point) and through the plain ring: the same bits,
+        # every rank's row alike, and within the fold bound of a plain sum
+        # (psum).
         grads, _, _ = mesh_loss_and_grads(lcfg, state.params, rollout, learner.dist, ranks)
         stacked = torch.stack([torch.cat([g.reshape(-1) for g in gs]) for gs in grads])
-        kernel_sum, plain_sum = rr.ring_all_reduce(stacked), rr.ring_all_reduce_plain(stacked)
+        kernel_sum = torch.stack(
+            [torch.cat([g.reshape(-1) for g in gs]) for gs in rr.ring_all_reduce_grads(grads)])
+        plain_sum = rr.ring_all_reduce_plain(stacked)
         if not torch.equal(kernel_sum, plain_sum):
             raise AssertionError(f"{phase}: reduced gradient through B4 differs from the plain ring")
         ring = {
@@ -512,6 +545,12 @@ def kernel_entry(name: str, source: str, replaces: str, main: dict, max_err: flo
         # reverse scan (cumsum/cumprod cover only its special cases); a sum
         # over the ranks computes the all-reduce.
         "library_ms": main.get("library_ms"),
+        # The device times at this shape from the kernel check (the one
+        # above is the profiled update's), and for B4 the library call's,
+        # warm and with a cold L2.
+        "shape_device_ms": main.get("device_ms"),
+        **{k: main[k] for k in ("library_device_ms", "cold_l2_device_ms",
+                                "cold_l2_library_device_ms") if k in main},
         "shape": main.get("shape", [main.get("n"), main.get("D")] if "n" in main
                           else [main.get("T"), main.get("B")]),
     }

@@ -5,7 +5,9 @@ interpreter bit for bit: both round the recurrence once as a fused
 multiply-add and every other product on its own. ``vtrace`` adds the
 exp/clip prologue, where PyTorch's ``exp`` and XLA's may differ in the last
 ulp; 2 f32 ulps on each rho (rtol 3e-7) compound through at most T steps of
-the recurrence, so the outputs are held to rtol 1e-5 of their scale.
+the recurrence, so the outputs are held to rtol 1e-5 of their scale. The
+CUDA kernel's chunked, three-phase order of the same operations is written
+out in numpy and held to the plain version bit for bit.
 """
 
 import numpy as np
@@ -56,6 +58,43 @@ def test_plain_is_bit_identical_to_pallas_interpret(T, B):
         r = np.asarray(r)
         assert o.dtype == torch.float32 and o.shape == r.shape
         assert np.array_equal(o.numpy(), r), f"{name}: {int((o.numpy() != r).sum())} differ"
+
+
+def _staged_tail(crho, coeff, rew, disc, val, boot, rows=32):
+    """The CUDA kernel's schedule in numpy float32: time chunks of ``rows``
+    steps from the end; per chunk delta for every step, then the recurrence
+    alone, then vs, vs - V and pg, with vs_{t+1} recomputed as
+    x_{t+1} + V_{t+1}; V, vs and x carried from chunk to chunk."""
+    f32 = np.float32
+    T = rew.shape[0]
+    vs, adv, pg = (np.empty_like(rew) for _ in range(3))
+    x = boot * f32(0)
+    v_next = vs_next = boot
+    for hi in range(T, 0, -rows):
+        lo = max(hi - rows, 0)
+        v_below = np.concatenate([val[lo + 1:hi], v_next[None]])
+        delta = crho[lo:hi] * ((rew[lo:hi] + disc[lo:hi] * v_below) - val[lo:hi])
+        xs = np.empty_like(delta)
+        for t in range(hi - lo - 1, -1, -1):
+            x = fma_f32(*map(torch.from_numpy, (coeff[lo + t], x, delta[t]))).numpy()
+            xs[t] = x
+        s = xs + val[lo:hi]
+        vs_below = np.concatenate([xs[1:] + val[lo + 1:hi], vs_next[None]])
+        vs[lo:hi], adv[lo:hi] = s, xs
+        pg[lo:hi] = crho[lo:hi] * ((rew[lo:hi] + disc[lo:hi] * vs_below) - val[lo:hi])
+        v_next, vs_next = val[lo], s[0]
+    return vs, adv, pg
+
+
+@pytest.mark.parametrize("T,B", [(257, 1001), (37, 1000), (64, 130), (32, 32), (1, 3)])
+def test_staged_schedule_is_bit_identical_to_plain(T, B):
+    """The kernel's chunked, three-phase order of the same operations gives
+    the plain version's bits, at a T longer than one chunk too."""
+    args = tail_inputs(T, B, seed=T * 31 + B)
+    ref = fv.fused_vtrace_plain(*map(torch.from_numpy, args))
+    for name, r, o in zip(("vs", "vs_minus_v", "pg"), ref, _staged_tail(*args)):
+        assert o.dtype == np.float32
+        assert np.array_equal(o, r.numpy()), f"{name}: {int((o != r.numpy()).sum())} differ"
 
 
 def test_fma_rounds_once():

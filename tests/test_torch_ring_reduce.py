@@ -12,7 +12,10 @@ Bars: the port's plain version equals the lax twin bit for bit (same
 schedule, same fold order); its rows are the same bits for every rank; at
 n=2 it is the two-operand sum; against a plain sum it is within the float
 fold bound (n-1) * eps * sum|x| elementwise (tests/test_ring_reduce.py's).
-The CUDA kernel is held to the plain version on the card by chip_smoke.py.
+The CUDA kernel's arithmetic, one pass that folds each element's ranks in
+the ring's order, is written out in numpy and held to the lax twin and the
+plain version bit for bit; the kernel itself is held to the plain version
+on the card by chip_smoke.py.
 """
 
 import jax
@@ -78,6 +81,76 @@ def test_plain_is_bit_identical_to_jax_lax_ring(jax_rings, n, d):
     np.testing.assert_array_equal(got.numpy(), jax_rings[(n, d)])
 
 
+def _one_pass_fold(x: np.ndarray) -> np.ndarray:
+    """The CUDA kernel's arithmetic in numpy: element i of direction
+    i // (n*chunk) and chunk (i // chunk) % n starts from rank c's value and
+    adds ranks c+sign, c+2*sign, ... in that order, one float32 add each
+    (sign +1 for direction 0, -1 for 1; chunk = S*128 of the JAX geometry)."""
+    n, d = x.shape
+    sublanes = max(8, -(-(-(-d // (2 * n * 128))) // 8) * 8)
+    chunk = sublanes * 128
+    i = np.arange(d)
+    c = (i // chunk) % n
+    sign = np.where(i // (n * chunk) == 0, 1, -1)
+    acc = x[c, i]
+    for k in range(1, n):
+        acc = x[(c + k * sign) % n, i] + acc
+        assert acc.dtype == np.float32
+    return acc
+
+
+@pytest.mark.parametrize("d", DS)
+@pytest.mark.parametrize("n", NS)
+def test_one_pass_fold_is_bit_identical_to_jax_lax_ring(jax_rings, n, d):
+    """The kernel's one-pass fold gives every rank the lax ring's bits."""
+    fold = _one_pass_fold(_vals(n, d))
+    for rank in range(n):
+        np.testing.assert_array_equal(fold, jax_rings[(n, d)][rank])
+
+
+@pytest.mark.parametrize("d", GRAD_DS)
+@pytest.mark.parametrize("n", NS)
+def test_one_pass_fold_is_bit_identical_to_plain_ring(n, d):
+    """At the mesh phases' gradient sizes, against the plain ring."""
+    x = _vals(n, d)
+    ref = rr.ring_all_reduce_plain(torch.from_numpy(x)).numpy()
+    fold = _one_pass_fold(x)
+    for rank in range(n):
+        np.testing.assert_array_equal(fold, ref[rank])
+
+
+def _short_storage() -> torch.Tensor:
+    """Rows 1032 floats apart whose storage ends right after the last
+    row's 1031st float."""
+    return torch.zeros(3 * 1032 + 1031).as_strided((4, 1031), (1032, 1))
+
+
+@pytest.mark.parametrize("make,vector", [
+    (lambda: torch.zeros(8, 1092)[:, :1091], True),
+    (lambda: torch.zeros(4, 1032), True),
+    (lambda: torch.zeros(8, 1091), False),
+    (lambda: torch.zeros(4, 1036)[:, 1:1033], False),
+    (_short_storage, False),
+    (lambda: torch.zeros(1031).expand(4, 1031), False),
+], ids=["stride-rounded", "contiguous-4", "odd-stride", "off-grid-start", "short-storage",
+        "broadcast-rows"])
+def test_16_byte_loads_only_where_every_row_can_take_them(make, vector):
+    assert rr._vector_rows(make()) is vector
+
+
+def test_grads_are_laid_out_for_16_byte_loads(monkeypatch):
+    """``ring_all_reduce_grads`` writes the ranks' flattened lists into
+    one buffer whose rows the kernel reads with 16-byte loads, even at an
+    odd D (33 floats here)."""
+    seen = []
+    real = rr.ring_all_reduce
+    monkeypatch.setattr(rr, "ring_all_reduce", lambda x: seen.append(x) or real(x))
+    rr.ring_all_reduce_grads([[torch.from_numpy(g) for g in grads] for grads in _grads(4)])
+    (stacked,) = seen
+    assert stacked.shape == (4, 33) and stacked.stride() == (36, 1)
+    assert rr._vector_rows(stacked)
+
+
 @pytest.mark.parametrize("n", NS)
 def test_grads_match_jax_ring_all_reduce_grads(jax_rings, n):
     per_rank = [[torch.from_numpy(g) for g in grads] for grads in _grads(n)]
@@ -98,6 +171,8 @@ def test_chunks_have_the_jax_geometry(n, d):
     assert tuple(got.shape) == ref.shape
     assert got.shape[2] % 8 == 0 and got.shape[2] >= 8
     np.testing.assert_array_equal(got.numpy(), ref)
+    # The kernel's 512-float tiles never straddle a chunk.
+    assert rr._chunk(d, n) == got.shape[-2:].numel() and rr._chunk(d, n) % 1024 == 0
 
 
 def test_flagship_chunks_exceed_the_pallas_vmem_budget():
