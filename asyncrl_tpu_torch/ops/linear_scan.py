@@ -10,9 +10,14 @@ copies on DMA semaphores). Four pieces live here:
   kernels: a Python loop over ``t`` with one fused multiply-add a step. The
   CPU path and the yardstick both kernels are held to, bit for bit.
 - the CUDA kernels, ``csrc/linear_scan.cu`` (its header gives the designs
-  and the bound): ``linear_scan`` reads ``a`` and ``b`` straight from device
-  memory; ``linear_scan_dma`` brings them into shared memory with Hopper
-  bulk asynchronous copies that complete on an mbarrier.
+  and the bound, 12 bytes an element): ``linear_scan`` gives each thread a
+  column, which it loads 32 rows at a time into registers, the next batch in
+  flight while the current one is walked; ``linear_scan_dma`` brings ``a``
+  and ``b`` into a ring of four 16-row stages in shared memory with Hopper
+  bulk asynchronous copies that complete on mbarriers, issued by a producer
+  warp that runs up to three chunks ahead of the walk: two 2-D tensor-map
+  tiles a stage where every row is on the 16-byte grid, one copy a row
+  segment elsewhere. Both take 32 columns a block.
 - :func:`linear_scan` and :func:`linear_scan_dma`, the wrappers: they check
   their inputs, flatten the trailing dims into columns (as the JAX
   ``_prep`` does), run the plain version for CPU tensors and launch their
@@ -31,6 +36,7 @@ gradient of their inputs, so an input that requires grad raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -75,17 +81,22 @@ def _check(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(f"{name} runs on cpu or cuda, not {a.device.type}")
 
 
+@functools.cache
+def _kernel(name: str):
+    fn = getattr(cuda_build.load("linear_scan"), f"{name}_launch")
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _launch(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     T = a.shape[0]
     a2, b2 = a.reshape(T, -1), b.reshape(T, -1)
     N = a2.shape[1]
     out = torch.empty_like(b2)
-    fn = getattr(cuda_build.load("linear_scan"), f"{name}_launch")
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(a2.data_ptr(), b2.data_ptr(), out.data_ptr(), T, N, stream)
+        rc = _kernel(name)(a2.data_ptr(), b2.data_ptr(), out.data_ptr(), T, N, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     launches[name] += 1

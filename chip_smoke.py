@@ -9,13 +9,14 @@ From the root of the repository, on a machine with a CUDA GPU, ``nvcc``
 2. builds every CUDA kernel of ``asyncrl_tpu_torch`` from its source, one
    ``nvcc`` per source, all at once;
 3. holds each kernel against its plain PyTorch version at the shapes the
-   training paths give it (bit for bit) and times both: the fused V-trace
-   tail (B1), the reverse scan (B2) and its bulk-copy twin (B3), which are
-   also held against each other, and the ring all-reduce (B4) over 2, 4 and
-   8 ranks at both mesh phases' gradient sizes and a ragged one, in the
-   gradient path's layout and as a contiguous tensor, with a plain sum over
-   the ranks as the library call (warm, and with a cold L2 at the
-   flagship point);
+   training paths give it (bit for bit) and times both, with each kernel's
+   device time at each shape: the fused V-trace tail (B1), the reverse scan
+   (B2) and its bulk-copy twin (B3), which are also held against each other
+   (these three also with a cold L2 at brax_ppo's), and the ring
+   all-reduce (B4) over 2, 4 and 8 ranks at both mesh phases' gradient
+   sizes and a ragged one, in the gradient path's layout and as a
+   contiguous tensor, with a plain sum over the ranks as the library call
+   (warm, and with a cold L2 at the flagship point);
 4. trains, each at the preset's full width, and checks that every update
    launched each of its path's kernels as often as the path says and the
    other kernels never, that the metrics are finite, and that the loss on
@@ -58,15 +59,22 @@ VTRACE_SHAPES = {
     "ragged": (37, 1000), "atari_impala_mesh8_rank": (32, 128),
     "pong_impala_mesh8_rank": (32, 32), "long_ragged": (257, 1001),
 }
-# Path shapes of the scan kernels: brax_ppo's GAE, pong_impala's lax
-# V-trace, and a ragged [T, ...] whose 7 x 143 = 1001 columns leave every
-# row off the 16-byte grid that bulk copies need.
-SCAN_SHAPES = {"brax_ppo": (64, 8192), "pong_impala": (32, 256), "ragged": (37, 7, 143)}
+# Path shapes of the scan kernels, each with the floats its inputs start
+# into a larger buffer: brax_ppo's GAE, pong_impala's lax V-trace, a ragged
+# [T, ...] whose 7 x 143 = 1001 columns leave every row but one in four off
+# the 16-byte grid that bulk copies need, one longer than several time
+# chunks, brax_ppo's shape with both base pointers off that grid, and one
+# on the grid whose last time chunk and last block of columns are partial
+# (B3's tiles reach past T and N).
+SCAN_SHAPES = {
+    "brax_ppo": ((64, 8192), 0), "pong_impala": ((32, 256), 0), "ragged": ((37, 7, 143), 0),
+    "long_ragged": ((257, 1001), 0), "offset": ((64, 8192), 1), "tile_edges": ((37, 1004), 0),
+}
 # Ring sizes of B4 (ranks sharing the card) and its ragged payload size.
 RING_RANKS = (2, 4, 8)
 RING_RAGGED = 1031
-# Floats of the scratch tensor written between calls to time B4 and its
-# library call with a cold L2 (50 MB on an H100): 128 MB.
+# Floats of the scratch tensor written between calls to time a kernel (and
+# B4's library call) with a cold L2 (50 MB on an H100): 128 MB.
 L2_FLUSH_FLOATS = 32 << 20
 MESH_RANKS = 8  # ranks of the mesh phases
 UPDATES = 4  # updates per training phase; the fps window is the last half
@@ -98,7 +106,7 @@ PHASES = (
 PROFILE_KEYS = {
     "fused_vtrace": "fused_vtrace_kernel(",
     "linear_scan": "linear_scan_kernel(",
-    "linear_scan_dma": "linear_scan_dma_kernel(",
+    "linear_scan_dma": "linear_scan_dma_kernel",
     "ring_all_reduce": "ring_all_reduce_kernel<",
 }
 # The library call of B4, torch.sum over the ranks, in the profiler.
@@ -157,20 +165,28 @@ def reset_counters() -> None:
         ls.launches[name] = 0
 
 
-def device_ms(fn, key: str, calls: int = 10) -> float | None:
+def device_ms(fn, key: str, calls: int = 10, required: bool = False) -> float | None:
     """Device time per call of the kernel whose profiler name holds
-    ``key``, over ``calls`` calls of ``fn`` under ``torch.profiler``."""
+    ``key``, over ``calls`` calls of ``fn`` under ``torch.profiler``; None
+    if the profiler recorded no such kernel. With ``required``, a profile
+    that misses it is taken once more, and a second miss fails the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and key in e.key]
-    return hits[0].self_device_time_total / hits[0].count / 1e3 if hits else None
+    for _ in range(2 if required else 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and key in e.key]
+        if hits:
+            return hits[0].self_device_time_total / hits[0].count / 1e3
+    if required:
+        raise AssertionError(f"the profiler recorded no kernel named {key!r}, twice")
+    return None
 
 
 def vtrace_inputs(T: int, B: int, seed: int) -> tuple[torch.Tensor, ...]:
@@ -188,9 +204,12 @@ def vtrace_inputs(T: int, B: int, seed: int) -> tuple[torch.Tensor, ...]:
 
 
 def check_fused_vtrace() -> dict:
-    """Kernel vs plain version, bit for bit, and their times."""
+    """Kernel vs plain version, bit for bit, and their times: call and
+    device time at every shape, and at brax_ppo's the device time with a
+    cold L2 too."""
     from asyncrl_tpu_torch.ops import fused_vtrace as fv
 
+    flush = torch.empty(L2_FLUSH_FLOATS, device="cuda")
     rows = {}
     for name, (T, B) in VTRACE_SHAPES.items():
         args = vtrace_inputs(T, B, seed=T * 7919 + B)
@@ -214,6 +233,12 @@ def check_fused_vtrace() -> dict:
             "plain_ms": time_ms(lambda: fv.fused_vtrace_plain(*args), reps=3, trials=5),
             **bound(4 * (5 * T * B + B + 3 * T * B), 11 * T * B),
         }
+        if name == "brax_ppo":
+            # Each timed call after 128 MB of writes, so it reads its
+            # inputs from device memory and not from the L2.
+            rows[name]["cold_l2_device_ms"] = device_ms(
+                lambda: (flush.zero_(), fv.fused_vtrace(*args)), PROFILE_KEYS["fused_vtrace"],
+                required=True)
         log(f"fused_vtrace {name} T={T} B={B}: bit-identical to plain; "
             + json.dumps(rows[name]))
     return rows
@@ -221,15 +246,19 @@ def check_fused_vtrace() -> dict:
 
 def check_linear_scan() -> dict:
     """Both scan kernels vs the plain version and vs each other, bit for
-    bit, and their times."""
+    bit, and their times: call and device time at every shape, and at
+    brax_ppo's the device time with a cold L2 too."""
     from asyncrl_tpu_torch.ops import linear_scan as ls
 
+    flush = torch.empty(L2_FLUSH_FLOATS, device="cuda")
     rows = {}
-    for name, shape in SCAN_SHAPES.items():
-        g = torch.Generator(device="cuda").manual_seed(math.prod(shape))
-        # Discount-like coefficients (GAE's gamma * lambda * (1 - done)).
-        a = 0.94 * torch.rand(shape, generator=g, device="cuda")
-        b = torch.randn(shape, generator=g, device="cuda")
+    for name, (shape, offset) in SCAN_SHAPES.items():
+        g = torch.Generator(device="cuda").manual_seed(math.prod(shape) + offset)
+        n = math.prod(shape)
+        # Discount-like coefficients (GAE's gamma * lambda * (1 - done)),
+        # each input a contiguous view `offset` floats into its buffer.
+        a = (0.94 * torch.rand(n + offset, generator=g, device="cuda"))[offset:].view(shape)
+        b = torch.randn(n + offset, generator=g, device="cuda")[offset:].view(shape)
         ref = ls.linear_scan_plain(a, b)
         outs = {"linear_scan": ls.linear_scan(a, b), "linear_scan_dma": ls.linear_scan_dma(a, b)}
         torch.cuda.synchronize()
@@ -247,14 +276,24 @@ def check_linear_scan() -> dict:
             fn = getattr(ls, kernel)
             # Bytes: a and b read once, x written once. Operations: one fma
             # (2 f32 flops) an element.
-            rows[(kernel, name)] = {
-                "shape": list(shape), "T": T, "N": N,
+            row = {
+                "shape": list(shape), "offset_floats": offset, "T": T, "N": N,
                 "max_abs_err": float((out - ref).abs().max()),
                 "ms": time_ms(lambda: fn(a, b), reps=200),
+                # Required at brax_ppo's shape: the kernels line reports it.
+                "device_ms": device_ms(lambda: fn(a, b), PROFILE_KEYS[kernel], calls=20,
+                                       required=name == "brax_ppo"),
                 "plain_ms": plain_ms,
                 **bound(4 * 3 * T * N, 2 * T * N),
             }
-            log(f"{kernel} {name} {shape}: bit-identical to plain and to its twin; "
+            if name == "brax_ppo":
+                # Each timed call after 128 MB of writes, so it reads its
+                # inputs from device memory and not from the L2.
+                row["cold_l2_device_ms"] = device_ms(
+                    lambda: (flush.zero_(), fn(a, b)), PROFILE_KEYS[kernel], calls=20,
+                    required=True)
+            rows[(kernel, name)] = row
+            log(f"{kernel} {name} {shape} offset {offset}: bit-identical to plain and to its twin; "
                 + json.dumps(rows[(kernel, name)]))
     return rows
 
@@ -546,8 +585,8 @@ def kernel_entry(name: str, source: str, replaces: str, main: dict, max_err: flo
         # over the ranks computes the all-reduce.
         "library_ms": main.get("library_ms"),
         # The device times at this shape from the kernel check (the one
-        # above is the profiled update's), and for B4 the library call's,
-        # warm and with a cold L2.
+        # above is the profiled update's), warm and with a cold L2, and for
+        # B4 the library call's.
         "shape_device_ms": main.get("device_ms"),
         **{k: main[k] for k in ("library_device_ms", "cold_l2_device_ms",
                                 "cold_l2_library_device_ms") if k in main},
