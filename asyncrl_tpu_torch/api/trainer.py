@@ -1,10 +1,11 @@
 """Trainer of the port (counterpart of ``asyncrl_tpu/api/trainer.py`` on the
 Anakin backend): owns the env, the model and the learner, runs the training
-loop and greedy evaluation.
+loop, greedy evaluation (also in training, every ``eval_every`` calls) and
+checkpoints (``utils/checkpoint.py``).
 
-``train()`` keeps each update's metrics on the device and reads them back
-once every ``log_every`` updates, so the loop does not wait for the device
-between reads.
+``train()`` keeps each update call's metrics on the device and reads them
+back once every ``log_every`` calls (a call runs ``updates_per_call``
+updates), so the loop does not wait for the device between reads.
 """
 
 from __future__ import annotations
@@ -17,10 +18,11 @@ import torch
 
 from asyncrl_tpu_torch.config import Config, default_eval_max_steps
 from asyncrl_tpu_torch.envs import registry
-from asyncrl_tpu_torch.learn.learner import Learner, TrainState
+from asyncrl_tpu_torch.learn.learner import Learner, TrainState, validate_train_target
 from asyncrl_tpu_torch.models.networks import build_model
 from asyncrl_tpu_torch.ops.distributions import for_spec
 from asyncrl_tpu_torch.parallel.mesh import make_mesh
+from asyncrl_tpu_torch.utils import checkpoint
 
 
 def resolve_device(name: str) -> torch.device:
@@ -71,9 +73,16 @@ class Trainer:
     and ``mesh`` default to the config's (the model from ``config.seed``,
     the mesh ``make_mesh(config.mesh_shape, config.mesh_axes)`` over the
     config's device); ranks sharing one card are a mesh passed in, e.g.
-    ``make_mesh((8,), devices=[torch.device("cuda")] * 8)``."""
+    ``make_mesh((8,), devices=[torch.device("cuda")] * 8)``.
 
-    def __init__(self, config: Config, env=None, model=None, mesh=None):
+    Checkpoints: with ``config.checkpoint_dir`` set, the full train state
+    and ``env_steps`` are saved there every ``config.checkpoint_every``
+    update calls and once when ``train()`` exits, by any path; a directory
+    that already holds checkpoints is resumed from its latest step.
+    ``restore=path`` starts from the latest checkpoint under ``path``,
+    read-only."""
+
+    def __init__(self, config: Config, env=None, model=None, mesh=None, restore=None):
         self.device = resolve_device(config.device)
         self.config = config
         self.env = env if env is not None else registry.make(config.env_id, config)
@@ -86,52 +95,80 @@ class Trainer:
         self.mesh = mesh
         self.learner = Learner(config, self.env, self.model, mesh)
         self.state: TrainState = self.learner.init_state(config.seed)
-        self.env_steps = 0
+        self._ckpt, self.env_steps = checkpoint.setup(config, restore, self.state)
+        self.checkpointer = self._ckpt.checkpointer
+
+    def save_checkpoint(self) -> None:
+        """Save the current train state now (needs ``checkpoint_dir``)."""
+        self._ckpt.save_now(self.state, self.env_steps)
+
+    def close(self) -> None:
+        """Release resources (checkpoint writes are synchronous)."""
+        self._ckpt.close()
 
     def train(
         self,
         total_env_steps: int | None = None,
         callback: Callable[[dict[str, Any]], None] | None = None,
     ) -> list[dict[str, Any]]:
-        """Run updates until ``total_env_steps`` env frames are consumed.
+        """Run update calls until ``total_env_steps`` env frames are consumed.
 
-        Returns one metrics dict per window of ``log_every`` updates, each
-        with ``env_steps``, ``fps`` and ``episode_return`` (the mean over the
-        episodes completed in the window).
+        Returns one metrics dict per window of ``log_every`` calls, each with
+        ``env_steps``, ``fps`` and ``episode_return`` (the mean over the
+        episodes completed in the window), and ``eval_return`` in the windows
+        that end with an in-training eval.
         """
         cfg = self.config
         target = total_env_steps or cfg.total_env_steps
-        steps_per_update = cfg.batch_steps_per_update
+        validate_train_target(cfg, target)
+        steps_per_call = cfg.batch_steps_per_update * cfg.updates_per_call
         history: list[dict[str, Any]] = []
         pending: list[dict[str, torch.Tensor]] = []
         window_start = time.perf_counter()
         window_steps = 0
-        while self.env_steps < target:
-            self.state, metrics = self.learner.update(self.state)
-            self.env_steps += steps_per_update
-            window_steps += steps_per_update
-            pending.append(metrics)
-            if len(pending) < cfg.log_every and self.env_steps < target:
-                continue
-            drained = {
-                k: torch.stack([m[k] for m in pending]).cpu().numpy() for k in pending[0]
-            }
-            pending = []
-            elapsed = time.perf_counter() - window_start
-            agg = {
-                k: float(np.mean(v)) for k, v in drained.items() if not k.startswith("episode_")
-            }
-            count = float(drained["episode_count"].sum())
-            agg["episode_count"] = count
-            agg["episode_return"] = float(drained["episode_return_sum"].sum() / max(count, 1.0))
-            agg["episode_length"] = float(drained["episode_length_sum"].sum() / max(count, 1.0))
-            agg["env_steps"] = self.env_steps
-            agg["fps"] = window_steps / max(elapsed, 1e-9)
-            window_steps = 0
-            history.append(agg)
-            if callback:
-                callback(agg)
-            window_start = time.perf_counter()
+        calls = calls_at_eval = 0
+        try:
+            while self.env_steps < target:
+                self.state, metrics = self.learner.update(self.state)
+                self.env_steps += steps_per_call
+                window_steps += steps_per_call
+                calls += 1
+                pending.append(metrics)
+                self._ckpt.after_update(self.state, self.env_steps)
+                if len(pending) < cfg.log_every and self.env_steps < target:
+                    continue
+                # One read per key; a row is a call's scalar or its [K] stack.
+                drained = {
+                    k: torch.stack([m[k] for m in pending]).cpu().numpy() for k in pending[0]
+                }
+                pending = []
+                elapsed = time.perf_counter() - window_start
+                window_start = time.perf_counter()
+                agg = {
+                    k: float(np.mean([np.mean(row) for row in v]))
+                    for k, v in drained.items() if not k.startswith("episode_")
+                }
+                count = float(np.sum([np.sum(row) for row in drained["episode_count"]]))
+                agg["episode_count"] = count
+                for name in ("return", "length"):
+                    total = np.sum([np.sum(row) for row in drained[f"episode_{name}_sum"]])
+                    agg[f"episode_{name}"] = float(total / max(count, 1.0))
+                agg["env_steps"] = self.env_steps
+                agg["fps"] = window_steps / max(elapsed, 1e-9)
+                window_steps = 0
+                # The eval runs on a log boundary, so its time is in no
+                # window's fps.
+                if cfg.eval_every > 0 and calls - calls_at_eval >= cfg.eval_every:
+                    calls_at_eval = calls
+                    agg["eval_return"] = self.evaluate(num_episodes=cfg.eval_episodes)
+                    self._ckpt.maybe_save_best(self.state, self.env_steps, agg["eval_return"])
+                    window_start = time.perf_counter()
+                history.append(agg)
+                if callback:
+                    callback(agg)
+        finally:
+            # A crash must not lose progress: save what there is.
+            self._ckpt.finalize(self.state, self.env_steps)
         return history
 
     def evaluate(

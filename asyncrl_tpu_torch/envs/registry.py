@@ -3,6 +3,7 @@ keyed by the JAX package's env ids."""
 
 from __future__ import annotations
 
+from asyncrl_tpu_torch.envs.cartpole import CartPole
 from asyncrl_tpu_torch.envs.core import Environment
 from asyncrl_tpu_torch.envs.pendulum import Pendulum
 from asyncrl_tpu_torch.envs.pong import Pong, PongPixels
@@ -27,6 +28,7 @@ def _pixel_kwargs(cfg) -> dict:
 
 
 _REGISTRY = {
+    "CartPole-v1": lambda cfg: CartPole(),
     "JaxPong-v0": lambda cfg: Pong(**pong_kwargs(cfg)),
     "JaxPongPixels-v0": lambda cfg: PongPixels(**pong_kwargs(cfg), **_pixel_kwargs(cfg)),
     "JaxPendulum-v0": lambda cfg: Pendulum(),

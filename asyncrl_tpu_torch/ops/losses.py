@@ -1,4 +1,4 @@
-"""The IMPALA and PPO losses and their helpers (counterpart of
+"""The A3C, IMPALA and PPO losses and their helpers (counterpart of
 ``asyncrl_tpu/ops/losses.py``). Functions over time-major ``[T, B, ...]``
 tensors returning ``(scalar_loss, metrics)``; metrics are 0-dim tensors
 that carry no gradient."""
@@ -8,10 +8,12 @@ from __future__ import annotations
 import torch
 
 from asyncrl_tpu_torch.ops.distributions import categorical_entropy, categorical_logp
+from asyncrl_tpu_torch.ops.gae import n_step_returns
 from asyncrl_tpu_torch.ops.vtrace import vtrace
 
 __all__ = [
-    "categorical_entropy", "categorical_logp", "explained_variance", "impala_loss", "ppo_loss",
+    "a3c_loss", "categorical_entropy", "categorical_logp", "explained_variance", "impala_loss",
+    "ppo_loss",
 ]
 
 
@@ -23,6 +25,45 @@ def explained_variance(targets: torch.Tensor, predictions: torch.Tensor) -> torc
     var_t = targets.var(correction=0)
     ev = 1.0 - (targets - predictions).var(correction=0) / torch.clamp(var_t, min=1e-8)
     return torch.where(var_t < 1e-8, torch.zeros_like(ev), ev)
+
+
+def a3c_loss(
+    logits: torch.Tensor,
+    values: torch.Tensor,
+    actions: torch.Tensor,
+    rewards: torch.Tensor,
+    discounts: torch.Tensor,
+    bootstrap_value: torch.Tensor,
+    value_coef: float = 0.5,
+    entropy_coef: float = 0.01,
+    dist=None,
+    scan_impl: str = "associative",
+    fused_scan: str = "lax",
+    diagnostics: bool = False,
+):
+    """n-step-return actor-critic loss (A3C): the targets R_t are the
+    fragment's discounted returns bootstrapped from V(x_T)
+    (:func:`n_step_returns`, with ``fused_scan`` as its ``fused``), the
+    advantage is R_t - V_t, and the policy gradient takes it as a constant.
+    ``diagnostics`` (``config.introspect``) adds the value head's explained
+    variance."""
+    returns = n_step_returns(rewards, discounts, bootstrap_value, scan_impl=scan_impl,
+                             fused=fused_scan)
+    advantages = returns - values
+    logp = dist.logp(logits, actions) if dist else categorical_logp(logits, actions)
+    pg_loss = -torch.mean(logp * advantages.detach())
+    value_loss = 0.5 * torch.mean(torch.square(advantages))
+    entropy = torch.mean(dist.entropy(logits) if dist else categorical_entropy(logits))
+    loss = pg_loss + value_coef * value_loss - entropy_coef * entropy
+    metrics = {
+        "pg_loss": pg_loss.detach(),
+        "value_loss": value_loss.detach(),
+        "entropy": entropy.detach(),
+        "mean_value": values.detach().mean(),
+    }
+    if diagnostics:
+        metrics["explained_variance"] = explained_variance(returns, values)
+    return loss, metrics
 
 
 def impala_loss(

@@ -54,12 +54,14 @@ def unroll(
     generator: torch.Generator,
     dist,
     reward_scale: float = 1.0,
+    step_cost: float = 0.0,
 ) -> tuple[ActorState, Rollout, EpisodeStats]:
     """Roll ``model`` (``obs[B] -> (dist_params[B, P], value[B])``) forward
     ``unroll_len`` steps over the env batch; ``dist`` interprets the policy
     head and says what noise a sample needs. Only the behaviour log-prob is
     kept from the forward: the learner recomputes values under its own
-    weights."""
+    weights. The fragment's rewards are the learner's view,
+    ``(r - step_cost) * reward_scale``; the episode sums stay raw."""
     obs = actor_state.obs
     B, device = obs.shape[0], obs.device
     T = unroll_len
@@ -89,7 +91,7 @@ def unroll(
         rollout.actions[t] = actions
         rollout.behaviour_logp[t] = dist.logp(dist_params, actions)
         env_state, ts = env.step(env_state, actions, env.draw(B, generator, device))
-        rollout.rewards[t] = ts.reward * reward_scale
+        rollout.rewards[t] = (ts.reward - step_cost) * reward_scale
         rollout.terminated[t] = ts.terminated
         rollout.truncated[t] = ts.truncated
 

@@ -31,8 +31,22 @@ From the root of the repository, on a machine with a CUDA GPU, ``nvcc``
    with ``grad_reduce="ring"``, 8 data-parallel ranks sharing the card:
    ``pong_impala`` and ``atari_impala``, each update B1 once per rank and B4
    once, with the reduced gradient of one fragment bit-identical through B4
-   and through the plain ring, and within the fold bound of a plain sum;
-5. prints one JSON line about the kernels, then the result line
+   and through the plain ring, and within the fold bound of a plain sum.
+   Through ``make_agent`` on one rank, the A3C and trainer-surface slice:
+   ``cartpole_a3c`` (64 CartPole envs, T=32, MLP 64x64) three ways, its
+   n-step returns on B1 by default, on B2 with ``fused_scan="lax",
+   scan_impl="kernel"`` and on B3 with ``scan_impl="kernel_dma"``;
+   ``cartpole_impala`` on B1; and ``pong_t2t`` (256 envs, 32 updates a call,
+   the living cost, the entropy anneal, and an in-training eval after its
+   second call) on B1, two calls;
+5. saves ``pong_t2t`` after one call into a git-ignored directory, restores
+   it into a fresh trainer with ``restore=``, and checks that the next call
+   of both gives the same state bit for bit, the CUDA generator's included;
+6. trains ``cartpole_a3c`` for its full 400,000 env steps at seeds 0, 1 and
+   2, takes a 32-episode greedy eval (``max_steps=500``) after each, and
+   fails if their mean is under half the JAX package's at the same budget
+   (``JAX_CARTPOLE_A3C_EVALS``);
+7. prints one JSON line about the kernels, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero without a result when CUDA is missing or any phase fails,
@@ -44,10 +58,12 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -57,7 +73,7 @@ import torch
 VTRACE_SHAPES = {
     "atari_impala": (32, 1024), "pong_impala": (32, 256), "brax_ppo": (64, 8192),
     "ragged": (37, 1000), "atari_impala_mesh8_rank": (32, 128),
-    "pong_impala_mesh8_rank": (32, 32), "long_ragged": (257, 1001),
+    "pong_impala_mesh8_rank": (32, 32), "long_ragged": (257, 1001), "cartpole": (32, 64),
 }
 # Path shapes of the scan kernels, each with the floats its inputs start
 # into a larger buffer: brax_ppo's GAE, pong_impala's lax V-trace, a ragged
@@ -77,7 +93,9 @@ RING_RAGGED = 1031
 # B4's library call) with a cold L2 (50 MB on an H100): 128 MB.
 L2_FLUSH_FLOATS = 32 << 20
 MESH_RANKS = 8  # ranks of the mesh phases
-UPDATES = 4  # updates per training phase; the fps window is the last half
+UPDATES = 4  # update calls per training phase; the fps window is the last half
+# Calls of the phases whose calls fuse several updates (pong_t2t: 32 each).
+FUSED_CALLS = 2
 # NVIDIA H100 SXM published peaks (data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -101,7 +119,23 @@ PHASES = (
      {"linear_scan": 1}),
     ("pong_impala_mesh8_ring", "pong_impala", {"grad_reduce": "ring"}, MESH_RANKS, MESH),
     ("atari_impala_mesh8_ring", "atari_impala", {"grad_reduce": "ring"}, MESH_RANKS, MESH),
+    ("cartpole_a3c", "cartpole_a3c", {}, 1, {"fused_vtrace": 1}),
+    ("cartpole_a3c_lax_kernel", "cartpole_a3c", {"fused_scan": "lax", "scan_impl": "kernel"}, 1,
+     {"linear_scan": 1}),
+    ("cartpole_a3c_lax_kernel_dma", "cartpole_a3c",
+     {"fused_scan": "lax", "scan_impl": "kernel_dma"}, 1, {"linear_scan_dma": 1}),
+    ("cartpole_impala", "cartpole_impala", {}, 1, {"fused_vtrace": 1}),
+    # One in-training eval, after the second call.
+    ("pong_t2t", "pong_t2t", {"eval_every": FUSED_CALLS}, 1, {"fused_vtrace": 1}),
 )
+# The JAX package's cartpole_a3c at its full budget, seeds 0, 1 and 2, each
+# a 32-episode greedy eval at max_steps=500, measured on the CPU by
+# `JAX_PLATFORMS=cpu python tests/cartpole_a3c_parity.py jax`; the port's
+# three-seed mean must reach half their mean.
+JAX_CARTPOLE_A3C_EVALS = (179.3125, 83.4375, 76.1875)
+LEARNING_SEEDS = (0, 1, 2)
+# Where the checkpoint round trip writes (git-ignored; removed after).
+CKPT_DIR = str(Path(__file__).resolve().parent / "chip_smoke_ckpt")
 # Device-kernel names in the profiler, by wrapper counter.
 PROFILE_KEYS = {
     "fused_vtrace": "fused_vtrace_kernel(",
@@ -408,7 +442,10 @@ def train_phase(phase: str, preset_name: str, overrides: dict, ranks: int,
     from asyncrl_tpu_torch.rollout.anakin import unroll
 
     preset = getattr(presets, preset_name)
-    cfg = preset.replace(device="cuda", log_every=UPDATES // 2, **overrides)
+    calls = UPDATES if preset.updates_per_call == 1 else FUSED_CALLS
+    cfg = preset.replace(device="cuda", log_every=calls // 2, **overrides)
+    steps_per_call = cfg.batch_steps_per_update * cfg.updates_per_call
+    updates = calls * cfg.updates_per_call
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -417,24 +454,28 @@ def train_phase(phase: str, preset_name: str, overrides: dict, ranks: int,
     else:
         agent = Trainer(cfg, mesh=make_mesh((ranks,), devices=[torch.device("cuda")] * ranks))
     reset_counters()
-    history = agent.train(total_env_steps=UPDATES * cfg.batch_steps_per_update)
+    history = agent.train(total_env_steps=calls * steps_per_call)
     torch.cuda.synchronize()
     launches = counters()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     last = history[-1]
-    expected = {k: UPDATES * per_update.get(k, 0) for k in KERNELS}
-    if launches != expected:
-        raise AssertionError(f"{phase}: {UPDATES} updates launched {launches}, expected {expected}")
+    expected = {k: updates * per_update.get(k, 0) for k in KERNELS}
+    if launches != expected or agent.state.update_step != updates:
+        raise AssertionError(f"{phase}: {calls} calls of {cfg.updates_per_call} updates "
+                             f"launched {launches}, expected {expected}")
     for window in history:
         bad = [k for k, v in window.items() if not math.isfinite(v)]
         if bad:
             raise AssertionError(f"{phase}: non-finite metrics {bad}")
-    if cfg.algo == "ppo":
+    evals = [w["eval_return"] for w in history if "eval_return" in w]
+    if len(evals) != (1 if cfg.eval_every else 0):
+        raise AssertionError(f"{phase}: {len(evals)} in-training evals in {len(history)} windows")
+    if cfg.algo == "ppo" and agent.env.spec.continuous:
         if abs(last["entropy"] - GAUSSIAN_ENTROPY) > 0.15:
             raise AssertionError(f"{phase}: entropy {last['entropy']} far from {GAUSSIAN_ENTROPY}")
-    elif not 0.0 < last["entropy"] <= math.log(6) + 1e-4:
-        raise AssertionError(f"{phase}: entropy {last['entropy']} outside (0, log 6]")
+    elif not 0.0 < last["entropy"] <= math.log(agent.env.spec.num_actions) + 1e-4:
+        raise AssertionError(f"{phase}: entropy {last['entropy']} outside (0, log actions]")
 
     # Where an update's time goes: the rollout alone, and the learner alone
     # (loss + backward for IMPALA, the whole multipass update for PPO),
@@ -445,7 +486,7 @@ def train_phase(phase: str, preset_name: str, overrides: dict, ranks: int,
     t = time.perf_counter()
     state.actor, rollout, _ = unroll(
         state.actor_params, agent.env, state.actor, cfg.unroll_len,
-        state.generator, learner.dist, cfg.reward_scale,
+        state.generator, learner.dist, cfg.reward_scale, cfg.step_cost,
     )
     torch.cuda.synchronize()
     rollout_s = time.perf_counter() - t
@@ -454,7 +495,7 @@ def train_phase(phase: str, preset_name: str, overrides: dict, ranks: int,
     # this fragment (rank 0's shard of it on a mesh): the kernel is the only
     # difference between the two. Plain code is the fused tail's plain
     # version for B1, and the sequential scan (the scan kernels' arithmetic)
-    # for B2 and B3.
+    # for B2 and B3, for V-trace, GAE and n-step returns alike.
     frag = shard_rollout(rollout, 0, ranks) if ranks > 1 else rollout
     plain = {"fused_scan": "plain"} if "fused_vtrace" in per_update else {"scan_impl": "sequential"}
     with torch.no_grad():
@@ -509,7 +550,9 @@ def train_phase(phase: str, preset_name: str, overrides: dict, ranks: int,
         "ranks": ranks,
         "num_envs": cfg.num_envs,
         "unroll_len": cfg.unroll_len,
-        "updates": UPDATES,
+        "calls": calls,
+        "updates_per_call": cfg.updates_per_call,
+        "updates": updates,
         "launches_per_update": per_update,
         "launches": launches,
         "env_steps_per_s": last["fps"],
@@ -521,6 +564,7 @@ def train_phase(phase: str, preset_name: str, overrides: dict, ranks: int,
         "loss": last["loss"],
         "entropy": last["entropy"],
         "loss_bit_identical_to_plain": True,
+        **({"in_training_eval_return": evals[0]} if evals else {}),
         "eval_return_100_steps": eval_return,
         "device_idle_share": profile["device_idle_share"],
         "kernel_device_ms": {k: profile["kernel_device_ms"][k] for k in per_update},
@@ -537,7 +581,7 @@ def profile_update(agent, unprofiled_s: float) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        agent.state, _ = agent.learner.update(agent.state)
+        agent.state, _ = agent.learner.update_once(agent.state)
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -558,6 +602,92 @@ def profile_update(agent, unprofiled_s: float) -> dict:
             for e in top
         ],
     }
+
+
+def checkpoint_round_trip() -> dict:
+    """``pong_t2t`` saves after one call; a fresh trainer restored from that
+    save (``restore=``, read-only) and the run that did not stop each take
+    the next call, and must end in the same state bit for bit: weights,
+    Adam state, envs, update count and the CUDA generator's state."""
+    import asyncrl_tpu_torch
+    from asyncrl_tpu_torch.configs import presets
+    from asyncrl_tpu_torch.utils.checkpoint import state_dict
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    cfg = presets.pong_t2t.replace(device="cuda", eval_every=0, log_every=1)
+    steps_per_call = cfg.batch_steps_per_update * cfg.updates_per_call
+    try:
+        t = time.perf_counter()
+        run = asyncrl_tpu_torch.make_agent(cfg, checkpoint_dir=CKPT_DIR)
+        run.train(total_env_steps=steps_per_call)  # saves on exit
+        saved = run.checkpointer.all_steps()
+        if saved != [cfg.updates_per_call]:
+            raise AssertionError(f"checkpoint: saved steps {saved}, expected [{cfg.updates_per_call}]")
+        restored = asyncrl_tpu_torch.make_agent(cfg, restore=CKPT_DIR)
+        before = state_dict(restored.state)
+        if not _flat_equal(before, state_dict(run.state)):
+            raise AssertionError("checkpoint: the restored state differs from the saved one")
+        run.state, run_metrics = run.learner.update(run.state)
+        restored.state, restored_metrics = restored.learner.update(restored.state)
+        torch.cuda.synchronize()
+        after_run, after_restored = state_dict(run.state), state_dict(restored.state)
+        if not _flat_equal(after_run, after_restored):
+            differ = [k for k in after_run if not _leaf_equal(after_run[k], after_restored[k])]
+            raise AssertionError(f"checkpoint: the next call differs after a restore: {differ[:8]}")
+        if any(not torch.equal(run_metrics[k], restored_metrics[k]) for k in run_metrics):
+            raise AssertionError("checkpoint: the next call's metrics differ after a restore")
+        row = {
+            "preset": "pong_t2t",
+            "saved_update_step": saved[0],
+            "next_update_step": run.state.update_step,
+            "leaves": len(after_run),
+            "state_bytes": sum(v.numel() * v.element_size() for v in after_run.values()
+                               if isinstance(v, torch.Tensor)),
+            "next_call_bit_identical_after_restore": True,
+            "cuda_generator_state_equal": torch.equal(after_run["generator"],
+                                                      after_restored["generator"]),
+            "wall_s": time.perf_counter() - t,
+        }
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    log("checkpoint round trip: " + json.dumps(row))
+    return row
+
+
+def _leaf_equal(a, b) -> bool:
+    return torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+
+def _flat_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(_leaf_equal(a[k], b[k]) for k in a)
+
+
+def learning_line() -> dict:
+    """``cartpole_a3c`` at its full budget on the card, at each of
+    ``LEARNING_SEEDS``, each followed by a 32-episode greedy eval at
+    ``max_steps=500``; the mean must reach half the JAX package's."""
+    import asyncrl_tpu_torch
+    from asyncrl_tpu_torch.configs import presets
+
+    evals, seconds = [], []
+    for seed in LEARNING_SEEDS:
+        t = time.perf_counter()
+        agent = asyncrl_tpu_torch.make_agent(presets.cartpole_a3c, device="cuda", seed=seed)
+        agent.train()
+        evals.append(agent.evaluate(num_episodes=32, max_steps=500))
+        seconds.append(time.perf_counter() - t)
+    mean = statistics.mean(evals)
+    jax_mean = statistics.mean(JAX_CARTPOLE_A3C_EVALS)
+    row = {
+        "preset": "cartpole_a3c", "env_steps": presets.cartpole_a3c.total_env_steps,
+        "seeds": list(LEARNING_SEEDS), "eval_returns": evals, "mean": mean,
+        "jax_eval_returns": list(JAX_CARTPOLE_A3C_EVALS), "jax_mean": jax_mean,
+        "bar": jax_mean / 2, "random_policy": 22, "seconds": seconds,
+    }
+    log("learning cartpole_a3c: " + json.dumps(row))
+    if not mean >= jax_mean / 2:
+        raise AssertionError(f"cartpole_a3c learned to {mean}, under half the JAX mean {jax_mean}")
+    return row
 
 
 def kernel_entry(name: str, source: str, replaces: str, main: dict, max_err: float,
@@ -630,6 +760,8 @@ def main() -> int:
     log(f"gradient sizes (parameter counts): {json.dumps(sizes)}")
     ring_rows = check_ring_reduce(sizes)
     trains = [train_phase(*phase) for phase in PHASES]
+    checkpoint_round_trip()
+    learning_line()
 
     scan_err = {
         k: max(r["max_abs_err"] for (kk, _), r in scan_rows.items() if kk == k)

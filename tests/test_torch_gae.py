@@ -1,4 +1,5 @@
-"""The port's GAE, lax-path V-trace and PPO loss against the JAX package's.
+"""The port's GAE, n-step returns, lax-path V-trace and A3C and PPO losses
+against the JAX package's.
 
 GAE is exact arithmetic on both sides but for one fused multiply-add a step,
 so both of its paths are held to JAX bit for bit on f32 inputs: the fused
@@ -8,7 +9,14 @@ adds the exp/clip prologue, where PyTorch's ``exp`` and XLA's may differ in
 the last ulp, so it is held to rtol 1e-5 of its scale as the fused path is
 (``test_torch_fused_vtrace.py``). The PPO loss takes logs and exps and
 means over the batch: 1e-5 relative, 1e-6 absolute, for the loss, its
-metrics and its gradients.
+metrics and its gradients. n-step returns are held to JAX bit for bit as
+GAE is (the fused tail with unit weights and zero values to
+``n_step_returns(fused="interpret")``, the sequential scan to JAX's), but
+for the associative scan, whose two packages combine in different orders
+(rtol 1e-5 / atol 1e-5, as ``tests/test_torch_scan.py``). The A3C loss
+takes logs and exps and means over the batch, and its returns ride the
+associative scan: 1e-5 relative, 1e-6 absolute, for the loss, its metrics
+and its gradients.
 """
 
 import jax
@@ -20,11 +28,13 @@ import torch
 from asyncrl_tpu.ops.distributions import Categorical as JCategorical
 from asyncrl_tpu.ops.distributions import DiagGaussian as JDiagGaussian
 from asyncrl_tpu.ops.gae import gae as jgae
+from asyncrl_tpu.ops.gae import n_step_returns as jn_step_returns
+from asyncrl_tpu.ops.losses import a3c_loss as ja3c_loss
 from asyncrl_tpu.ops.losses import ppo_loss as jppo_loss
 from asyncrl_tpu.ops.vtrace import vtrace as jvtrace
 from asyncrl_tpu_torch.ops.distributions import Categorical, DiagGaussian
-from asyncrl_tpu_torch.ops.gae import gae
-from asyncrl_tpu_torch.ops.losses import ppo_loss
+from asyncrl_tpu_torch.ops.gae import gae, n_step_returns
+from asyncrl_tpu_torch.ops.losses import a3c_loss, ppo_loss
 from asyncrl_tpu_torch.ops.vtrace import vtrace
 
 
@@ -159,3 +169,94 @@ def test_ppo_loss_matches_jax(dist_name):
     for g, jg in ((g_params, jg_params), (g_values, jg_values)):
         np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=1e-5, atol=1e-6)
     assert 0.0 < float(metrics["clip_frac"]) < 1.0
+
+
+def returns_fragment(T, B, seed, terminal_share=0.1):
+    """(rewards, discounts, bootstrap), numpy f32; ``terminal_share`` of the
+    discounts are episode ends (0)."""
+    rewards, _, _, boot = fragment(T, B, seed)
+    rng = np.random.default_rng(seed + 1)
+    disc = (0.99 * (rng.random((T, B)) >= terminal_share)).astype(np.float32)
+    return rewards, disc, boot
+
+
+RETURN_CASES = [(64, 512, 0.1), (37, 130, 0.1), (1, 5, 0.1), (32, 64, 0.6)]
+
+
+@pytest.mark.parametrize("T,B,terminal_share", RETURN_CASES)
+@pytest.mark.parametrize("path", ["plain", "sequential", "associative"])
+def test_n_step_returns_match_jax(T, B, terminal_share, path):
+    args = returns_fragment(T, B, seed=T * 17 + B, terminal_share=terminal_share)
+    targs = [torch.from_numpy(x) for x in args]
+    if path == "plain":
+        ref = jax.jit(lambda *a: jn_step_returns(*a, fused="interpret"))(*args)
+        out = n_step_returns(*targs, fused="plain")
+    else:
+        ref = jax.jit(lambda *a: jn_step_returns(*a, scan_impl=path, fused="lax"))(*args)
+        out = n_step_returns(*targs, scan_impl=path, fused="lax")
+    assert out.dtype == torch.float32 and out.shape == (T, B) and not out.requires_grad
+    if path == "associative":
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("T,B,terminal_share", RETURN_CASES)
+def test_n_step_returns_paths_agree(T, B, terminal_share):
+    """The fused tail (its plain version, and "auto" on CPU tensors) and the
+    kernel scans' plain version give the sequential scan's bits."""
+    args = [torch.from_numpy(x) for x in returns_fragment(T, B, seed=B, terminal_share=terminal_share)]
+    ref = n_step_returns(*args, scan_impl="sequential", fused="lax")
+    for kw in ({"fused": "plain"}, {"fused": "auto"}, {"fused": "lax", "scan_impl": "kernel"},
+               {"fused": "lax", "scan_impl": "kernel_dma"}):
+        assert torch.equal(n_step_returns(*args, **kw), ref), kw
+    with pytest.raises(ValueError):
+        n_step_returns(*args, fused="kernel")  # the kernel needs CUDA tensors
+    with pytest.raises(ValueError):
+        n_step_returns(*args, fused="interpret")
+
+
+def loss_fixture(T=6, B=4, A=3, seed=0, terminal_share=0.0):
+    """The fixture of tests/test_losses.py (``rand``), optionally with
+    episode ends among the discounts."""
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(size=(T, B, A)).astype(np.float32)
+    values = rng.normal(size=(T, B)).astype(np.float32)
+    actions = rng.integers(0, A, (T, B)).astype(np.int32)
+    rng.normal(-1.0, 0.3, (T, B))  # the behaviour log-probs A3C does not use
+    rewards = rng.normal(size=(T, B)).astype(np.float32)
+    discounts = np.full((T, B), 0.99, np.float32)
+    discounts[rng.random((T, B)) < terminal_share] = 0.0
+    bootstrap = rng.normal(size=(B,)).astype(np.float32)
+    return logits, values, actions, rewards, discounts, bootstrap
+
+
+@pytest.mark.parametrize("case", [
+    {}, {"T": 37, "B": 130, "A": 6, "seed": 3, "terminal_share": 0.2},
+], ids=["test_losses_rand", "long_terminal"])
+def test_a3c_loss_matches_jax(case):
+    logits, values, actions, rewards, discounts, boot = loss_fixture(**case)
+    kw = dict(value_coef=0.5, entropy_coef=0.01)
+    A = logits.shape[-1]
+
+    def jloss(lg, v):
+        return ja3c_loss(lg, v, actions, rewards, discounts, boot, dist=JCategorical(A),
+                         diagnostics=True, **kw)
+
+    (jl, jm), (jg_lg, jg_v) = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True))(
+        jnp.asarray(logits), jnp.asarray(values))
+    lg = torch.from_numpy(logits).requires_grad_()
+    v = torch.from_numpy(values).requires_grad_()
+    loss, metrics = a3c_loss(
+        lg, v, torch.from_numpy(actions).long(), torch.from_numpy(rewards),
+        torch.from_numpy(discounts), torch.from_numpy(boot), dist=Categorical(A),
+        diagnostics=True, **kw,
+    )
+    g_lg, g_v = torch.autograd.grad(loss, [lg, v])
+    np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=1e-5, atol=1e-6)
+    assert set(metrics) == set(jm)
+    for k, val in jm.items():
+        np.testing.assert_allclose(float(metrics[k]), float(val), rtol=1e-5, atol=1e-6, err_msg=k)
+    for g, jg in ((g_lg, jg_lg), (g_v, jg_v)):
+        assert np.isfinite(g.numpy()).all()
+        np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=1e-5, atol=1e-6)
