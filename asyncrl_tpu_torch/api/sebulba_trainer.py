@@ -127,8 +127,25 @@ carry ``staleness_p50/p95/max/mean`` (the per-fragment lags behind
 ``param_lag``), the first-call-per-shape counters of the inference and
 learner entry points (``compiles``, ``infer_recompile``,
 ``learner_recompile``, ``compile_ms_*``) and the memory watermarks
-(``mem_*``). Not ported yet: the divergence rollback (``ROADMAP.md``,
-Queue A item 14(f2)).
+(``mem_*``).
+
+The divergence rollback (``rollback_bad_windows > 0``, which needs
+``checkpoint_dir``): the learner's NaN guard skips every update whose loss
+or gradient norm is not finite (the windows carry the cumulative
+``nonfinite_skips``), and at each window close, before the elastic
+controller, a ``RollbackPolicy`` (``runtime/durability.py``) judges the
+window by the health events fired in it (without a monitor, by a non-finite
+``loss`` or ``grad_norm`` in the window). A bad window quarantines the
+fragments in flight (their staging leases voided, the replay ring emptied;
+``rollback_quarantined``, ``replay_quarantined``); the policy's
+``rollback_bad_windows``-th bad window in a row restores the newest
+retained step no later than the last good one (the oldest retained step if
+that one is gone; the newer steps deleted), folds the actor seed cursor and
+republishes at once; past ``rollback_max_attempts`` restores the run stops
+and raises. Each action counts ``rollback_quarantine``,
+``rollback_restores`` or ``rollback_abort``, dumps ``rollback.<kind>`` and
+annotates the time-series store; a window in which one fired skips the
+elastic controller. ``run_state`` carries the policy's ``attempts``.
 """
 
 from __future__ import annotations
@@ -140,6 +157,7 @@ import queue
 import sys
 import threading
 import time
+import types
 from collections import deque
 from typing import Any, Callable
 
@@ -246,6 +264,21 @@ class SebulbaTrainer:
                 "(drain_grace_s=0 / ASYNCRL_DRAIN_GRACE_S=0): the scripted SIGTERM would kill "
                 "the run undrained instead of testing the drain"
             )
+        # The divergence rollback: armed by rollback_bad_windows > 0, which
+        # also arms the learner's NaN guard. Nothing to roll back to without
+        # retained checkpoints.
+        self._rollback = None
+        if config.rollback_bad_windows > 0:
+            if not config.checkpoint_dir:
+                raise ValueError(
+                    "rollback_bad_windows > 0 requires checkpoint_dir: divergence rollback "
+                    "restores the last-good retained checkpoint"
+                )
+            self._rollback = durability.RollbackPolicy(config.rollback_bad_windows,
+                                                       config.rollback_max_attempts)
+        # The NaN guard's skipped updates over the run (window key
+        # nonfinite_skips).
+        self._nonfinite_skips = 0.0
         # ASYNCRL_SERVE wins over config.serve when set, read once here.
         self._serve_core = _use_serve_core(config)
         # The elastic runtime (runtime/elastic.py): ASYNCRL_ELASTIC wins over
@@ -520,8 +553,8 @@ class SebulbaTrainer:
             self._actor_restarts = int(run_state.get("actor_restarts", 0))
             self._server_restarts = int(run_state.get("server_restarts", 0))
             self._gateway_restarts = int(run_state.get("gateway_restarts", 0))
-            # rollback_attempts is read once the rollback policy is ported
-            # (Queue A item 14(f2)).
+            if self._rollback is not None:
+                self._rollback.attempts = int(run_state.get("rollback_attempts", 0))
             fleet = int(run_state.get("actors_live", config.actor_threads))
             if self._elastic_on and fleet != config.actor_threads:
                 emin, emax = self._elastic_bounds()
@@ -558,9 +591,7 @@ class SebulbaTrainer:
             "next_actor_seed": self._next_actor_seed,
             "updates": self._updates,
             "window_idx": monitor.window_idx if monitor is not None else 0,
-            # No rollback policy yet (Queue A item 14(f2)): JAX writes 0
-            # without one.
-            "rollback_attempts": 0,
+            "rollback_attempts": self._rollback.attempts if self._rollback is not None else 0,
             "actor_restarts": self._actor_restarts,
             "server_restarts": self._server_restarts,
             "gateway_restarts": self._gateway_restarts,
@@ -1098,6 +1129,108 @@ class SebulbaTrainer:
         except queue.Empty:
             pass
 
+    def _quarantine_poisoned(self, slab_groups: dict, fragments: list) -> int:
+        """Discard the fragments in flight, produced under (or poisoned by)
+        a diverging policy: the queued ones through the transport checker
+        with their staging leases voided (the rows re-open under fresh
+        generations), the partial slab groups and the K-stack likewise. With
+        the replay ring, every replay lease voids and the ring empties, with
+        its telemetry. Returns the fragments quarantined."""
+        staging = self._staging
+        count = 0
+        try:
+            while True:
+                fragment = self._queue.get_nowait()
+                if self._seq_checker is not None:
+                    self._seq_checker.check(fragment)
+                if fragment.lease is not None and staging is not None:
+                    staging.void(fragment.lease)
+                count += 1
+        except queue.Empty:
+            pass
+        for group in slab_groups.values():
+            for fragment in group:
+                if fragment.lease is not None and staging is not None:
+                    staging.void(fragment.lease)
+                count += 1
+        slab_groups.clear()
+        count += len(fragments)
+        fragments.clear()
+        if self._replay is not None:
+            dropped = self._replay.quarantine()
+            self._reuse_window.drain()
+            self._stall_history.clear()
+            if dropped:
+                obs_registry.counter("replay_quarantined").inc(dropped)
+        if count:
+            obs_registry.counter("rollback_quarantined").inc(count)
+        return count
+
+    def _execute_rollback(self, action) -> None:
+        """Restore the last good checkpoint (window-close thread): the steps
+        saved after it are deleted first, so that the fallback restore
+        cannot land on one written while the run diverged; the actor seed
+        cursor folds, so that the stretch trained again draws other data;
+        the restored weights publish at once. With no retained step the
+        guard's held state goes on, and ``rollback.no_checkpoint`` is
+        dumped."""
+        ckpt = self._ckpt.checkpointer
+        ckpt.wait()
+        steps = sorted(ckpt.all_steps())
+        if not steps:
+            flightrec.record("rollback.no_checkpoint",
+                             detail="rollback fired with no retained steps; "
+                             "continuing on NaN-guard-held params")
+            return
+        last_good = self._rollback.last_good_step
+        good = [s for s in steps if last_good is not None and s <= last_good]
+        # The last good step rotated out by retention (or none banked yet):
+        # the oldest retained step is the closest one left.
+        target = good[-1] if good else steps[0]
+        for step in steps:
+            if step > target:
+                ckpt.delete_step(step)
+        self.env_steps = ckpt.restore(self.state)
+        # The run trains from here again: reaching the restored step number
+        # later, the save must replace the retained copy.
+        ckpt.invalidate_restored()
+        self._next_actor_seed += 104729 * 997
+        version = self._store.publish(self._published(self.state), self.env_steps)
+        self._published_updates[version] = self._updates
+
+    def _rollback_step(self, agg: dict, slab_groups: dict, fragments: list) -> bool:
+        """The policy's verdict on the closed window (the drain thread).
+        True when an action fired."""
+        monitor = self._obs.monitor
+        if monitor is not None:
+            events = [e for e in monitor.recent_events() if e.window_idx == monitor.window_idx]
+        else:
+            # No health monitor: the window's own divergence signal.
+            events = []
+            if any(isinstance(agg.get(key), float) and not np.isfinite(agg[key])
+                   for key in ("loss", "grad_norm")):
+                events.append(types.SimpleNamespace(detector="nonfinite_loss"))
+        ckpt = self._ckpt.checkpointer
+        action = self._rollback.on_window(
+            events, ckpt.latest_step() if ckpt is not None else None)
+        if action is None:
+            return False
+        counter = {"quarantine": "rollback_quarantine", "rollback": "rollback_restores",
+                   "abort": "rollback_abort"}[action.kind]
+        obs_registry.counter(counter).inc()
+        flightrec.record(f"rollback.{action.kind}", detail=action.detail)
+        if self._obs.store is not None:
+            self._obs.store.annotate(action.event())
+        if action.kind == "abort":
+            self.stop()
+            raise RuntimeError(f"divergence rollback attempts exhausted: {action.detail}")
+        quarantined = self._quarantine_poisoned(slab_groups, fragments)
+        print(f"asyncrl_tpu_torch: rollback policy: {action.kind} — {action.detail} "
+              f"({quarantined} in-flight fragment(s) quarantined)", file=sys.stderr)
+        if action.kind == "rollback":
+            self._execute_rollback(action)
+        return True
+
     def stop(self) -> None:
         """Stop the gateway, the actor threads and the inference server, and
         drain the queue."""
@@ -1341,6 +1474,12 @@ class SebulbaTrainer:
                 # the registry snapshot of observe_window.
                 if self._staleness is not None:
                     agg.update(self._staleness.drain())
+                if "nonfinite_skip" in agg:
+                    # The NaN guard's per-update flags fold into one
+                    # cumulative count (their mean would read as a fraction).
+                    self._nonfinite_skips += float(np.sum(drained["nonfinite_skip"]))
+                    del agg["nonfinite_skip"]
+                    agg["nonfinite_skips"] = self._nonfinite_skips
                 if self._replay is not None:
                     # Replay off leaks none of these keys.
                     agg["replay_fill_frac"] = self._replay.fill_frac()
@@ -1365,10 +1504,14 @@ class SebulbaTrainer:
                 # The one registry snapshot (with the tracer's stats), after
                 # the eval, as every sink sees it.
                 self._obs.observe_window(agg)
+                # The divergence rollback first: a window the divergence
+                # poisoned must not also drive a fleet decision.
+                remediated = False
+                if self._rollback is not None:
+                    remediated = self._rollback_step(agg, slab_groups, fragments)
                 # The elastic controller reads the window the sinks saw and
                 # may move the fleet here, between updates, on this thread.
-                # (JAX skips it after a divergence rollback: item 14(f2).)
-                if self._elastic is not None:
+                if self._elastic is not None and not remediated:
                     self._elastic_step(agg)
                 history.append(agg)
                 if callback:

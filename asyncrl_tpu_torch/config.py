@@ -20,7 +20,7 @@ IMPALA-CNN torsos, Adam or RMSProp, observation and return normalization,
 gradient accumulation with block remat, the trainer's linear LR, fused
 update calls, entropy anneal, living cost, in-training eval, checkpoints,
 fault injection, the host path's stall watchdog, elastic runtime, preemption
-drain and crash-consistent resume, and the host path's
+drain, crash-consistent resume and divergence rollback, and the host path's
 tracing, flight recorder, request journal and run health (the time-series
 store, the detectors and the ``/metrics`` endpoint). The field names and
 defaults are the JAX package's, except the workload defaults (``env_id``, ``algo``),
@@ -30,8 +30,7 @@ name the port's kernels ("kernel" where the JAX package says "pallas").
 Every other knob of the JAX ``Config`` is in :data:`LATER_KNOBS`:
 :meth:`Config.replace` (and so ``make_agent``) accepts it at its JAX default,
 which is the only behaviour the port has, and any other value raises
-``NotImplementedError`` naming the slice of the port that brings it
-(``ROADMAP.md``, Queue A), or saying that it has no counterpart.
+``NotImplementedError`` saying that it has no counterpart.
 :func:`override` applies the command lines' ``key=value`` strings.
 """
 
@@ -42,18 +41,11 @@ from typing import Any, Mapping
 
 from asyncrl_tpu_torch.parallel.mesh import dp_axes
 
-# Knob -> (the JAX default the port runs, the later slice that brings the
-# rest). Every field of the JAX Config is either a field here or a knob here.
-_ROLLBACK = "the divergence rollback (Queue A item 14(f2))"
-_NOTHING = "nothing"
-LATER_KNOBS: dict[str, tuple[Any, str]] = {
-    "rollback_bad_windows": (0, _ROLLBACK),
-    "rollback_max_attempts": (2, _ROLLBACK),
-    # No counterpart: the checker of jax's shard_map, and buffer donation
-    # into a compiled step (PyTorch updates in place).
-    "smap_check": ("auto", _NOTHING),
-    "donate_buffers": (False, _NOTHING),
-}
+# Knob -> the JAX default the port runs. Every field of the JAX Config is
+# either a field here or a knob here. Neither knob has a counterpart: the
+# checker of jax's shard_map, and buffer donation into a compiled step
+# (PyTorch updates in place).
+LATER_KNOBS: dict[str, Any] = {"smap_check": "auto", "donate_buffers": False}
 
 SUPPORTED_ENVS = (
     "CartPole-v1", "JaxPong-v0", "JaxPongDuel-v0", "JaxPongPixels-v0", "JaxPendulum-v0",
@@ -317,6 +309,17 @@ class Config:
     # timeseries.jsonl goes on as a new segment opened by a resume event.
     # ASYNCRL_RESUME wins when set.
     resume: bool = False
+    # The divergence rollback (SebulbaTrainer and RolloutLearner; the Anakin
+    # trainer ignores both knobs, as JAX's does): with > 0, the learner's NaN
+    # guard skips every update whose loss or gradient norm is not finite
+    # (the whole state holds; the windows count nonfinite_skips), every bad
+    # window (nonfinite_loss, grad_explosion, entropy_collapse) quarantines
+    # the fragments in flight, and this many consecutive bad windows restore
+    # the last good checkpoint (runtime/durability.py RollbackPolicy). Needs
+    # checkpoint_dir. 0 (the default) is the program without the rollback.
+    rollback_bad_windows: int = 0
+    # Restores a run may make: the next bad streak past them aborts the run.
+    rollback_max_attempts: int = 2
     # --- tracing and forensics (obs/; the host backends) ---
     # Pipeline tracing: per-thread span rings across the actor, server,
     # staging and learner stages, exported for Perfetto, with the flight
@@ -457,16 +460,12 @@ class Config:
         for key in [k for k in kwargs if k not in fields]:
             if key not in LATER_KNOBS:
                 raise KeyError(f"unknown config key: {key!r}; valid keys: {sorted(fields)}")
-            default, later = LATER_KNOBS[key]
+            default = LATER_KNOBS[key]
             value = kwargs.pop(key)
-            if value != default and later == _NOTHING:
+            if value != default:
                 raise NotImplementedError(
                     f"{key}={value!r}: the port has no counterpart of this knob; "
                     f"only its JAX default {default!r} is accepted"
-                )
-            if value != default:
-                raise NotImplementedError(
-                    f"{key}={value!r} is not ported yet: it comes with {later}"
                 )
         return dataclasses.replace(self, **kwargs)
 
@@ -544,7 +543,7 @@ def override(config: Config, kvs: Mapping[str, str] | list[str]) -> Config:
         if key in field_names:
             old = getattr(config, key)
         elif key in LATER_KNOBS:
-            old = LATER_KNOBS[key][0]
+            old = LATER_KNOBS[key]
         else:
             raise KeyError(f"unknown config key: {key!r}; valid keys: {sorted(field_names)}")
         updates[key] = _coerce(old, raw)

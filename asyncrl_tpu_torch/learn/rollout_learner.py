@@ -20,6 +20,18 @@ observation stats from before it; both stats fold the fragment in after.
 order, metrics stacked ``[K]``. Multipass PPO draws its shuffles from the
 state's generator (the JAX package folds the update count into a key).
 
+The NaN guard (``rollback_bad_windows > 0``, the divergence rollback of
+``runtime/durability.py``): an update whose loss or gradient norm is not
+finite changes nothing, each of the K on its own. JAX selects the old state
+with ``jnp.where`` on immutable arrays; here the update writes in place, so
+the armed learner copies the state's tensors into kept buffers before each
+update, reads the finite flag once after it, and on a skip copies them back
+and puts back the update count, the optimizer's count, the normalization
+stats and the generator's state (the update after a skip draws the shuffles
+the skipped one drew, as JAX's, whose key is the held update count). The
+metrics keep the bad loss and add ``nonfinite_skip`` (1.0 skipped, 0.0
+applied). Off, the update is the program without the guard.
+
 Q-learning (``algo="qlearn"``) bootstraps from ``LearnerState.target_params``,
 its target network, refreshed every ``actor_staleness`` updates. With the
 device replay ring armed (``replay_slabs > 0``, ``learn/replay.py``) every
@@ -269,6 +281,10 @@ class RolloutLearner:
         # IMPACT mode (learn/replay.py): with the ring armed every update
         # runs under the target network's anchor.
         self.replay_mode = config.replay_slabs > 0
+        # The NaN guard's kept copy of the state's tensors (allocated at the
+        # first armed update).
+        self.nan_guard = config.rollback_bad_windows > 0
+        self._held: list[torch.Tensor] | None = None
         # First-call-per-shape accounting (obs/introspect.py): the update
         # sees one fragment geometry in a run, so any further count is a
         # geometry change the throughput numbers would otherwise hide. Only
@@ -356,16 +372,51 @@ class RolloutLearner:
 
     def _update(self, state: LearnerState, rollout: Rollout, perms=None):
         K = self.config.updates_per_call
+        once = self._guarded_once if self.nan_guard else self._update_once
         if K == 1:
-            return self._update_once(state, rollout, None if perms is None else perms[0])
+            return once(state, rollout, None if perms is None else perms[0])
         steps = []
         for k in range(K):
-            state, metrics = self._update_once(
+            state, metrics = once(
                 state, rollout_map(lambda x, k=k: x[k], rollout),
                 None if perms is None else perms[k],
             )
             steps.append(metrics)
         return state, {name: torch.stack([m[name] for m in steps]) for name in steps[0]}
+
+    @staticmethod
+    def _state_tensors(state: LearnerState) -> list[torch.Tensor]:
+        """The tensors an update writes in place: the weights, the
+        optimizer's moments and the target network's weights."""
+        opt = state.opt_state
+        tensors = list(state.params.parameters()) + list(opt.nu)
+        if isinstance(opt, AdamState):
+            tensors += opt.mu
+        if state.target_params is not None:
+            tensors += list(state.target_params.parameters())
+        return tensors
+
+    def _guarded_once(self, state: LearnerState, rollout: Rollout, perms):
+        """One update under the NaN guard: applied if its loss and gradient
+        norm are finite, else the state as it was, bit for bit. One host
+        read, of the finite flag."""
+        tensors = self._state_tensors(state)
+        if self._held is None:
+            self._held = [torch.empty_like(t) for t in tensors]
+        with torch.no_grad():
+            torch._foreach_copy_(self._held, tensors)
+        kept = (state.update_step, state.opt_state.count, state.obs_stats, state.ret_stats,
+                state.generator.get_state())
+        state, metrics = self._update_once(state, rollout, perms)
+        finite = torch.isfinite(metrics["loss"]) & torch.isfinite(metrics["grad_norm"])
+        metrics["nonfinite_skip"] = (~finite).to(torch.float32)
+        if not finite.item():
+            with torch.no_grad():
+                torch._foreach_copy_(tensors, self._held)
+            (state.update_step, state.opt_state.count, state.obs_stats, state.ret_stats,
+             generator_state) = kept
+            state.generator.set_state(generator_state)
+        return state, metrics
 
     def _update_once(self, state: LearnerState, rollout: Rollout, perms):
         cfg = self.config

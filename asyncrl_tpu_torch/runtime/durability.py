@@ -1,4 +1,5 @@
-"""The preemption drain (counterpart of ``asyncrl_tpu/runtime/durability.py:60-306``,
+"""The preemption drain, the crash-consistent resume and the divergence
+rollback (counterpart of ``asyncrl_tpu/runtime/durability.py``,
 framework-free).
 
 A platform's SIGTERM is a routine event on preemptible capacity. With a
@@ -19,17 +20,26 @@ handler is installed, a direct request otherwise.
 :func:`resume_enabled` arms the crash-consistent resume (``resume``,
 ``ASYNCRL_RESUME``): ``SebulbaTrainer`` restores the run state that every
 checkpoint's metadata carries (``run_state``) on top of the learner state.
-Not here yet: :class:`RollbackPolicy` with its quarantine and the
-learner's NaN guard come with Queue A item 14(f2) (``ROADMAP.md``).
+
+:class:`RollbackPolicy` (``rollback_bad_windows > 0``) is evaluated at each
+window close, before the elastic controller, on the critical learning-health
+detectors (:data:`TRIGGER_DETECTORS`). While the run diverges the learner's
+NaN guard (``learn/rollout_learner.py``) skips every non-finite update and
+every bad window quarantines the fragments in flight (their staging leases
+voided). After ``rollback_bad_windows`` consecutive bad windows the trainer
+restores the last good checkpoint, folds the actor seed cursor and
+republishes; a cooldown of :data:`COOLDOWN_WINDOWS` follows. Past
+``rollback_max_attempts`` restores the run aborts.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import signal
 import sys
 import threading
-from typing import Any, Callable
+from typing import Any, Callable, Sequence
 
 # Distinct exit codes: a supervisor script can tell a completed drain (the
 # final checkpoint is durable) from one that blew its grace (the periodic
@@ -39,6 +49,16 @@ EXIT_DEADLINE = 87
 
 RESUME_ENV_VAR = "ASYNCRL_RESUME"
 GRACE_ENV_VAR = "ASYNCRL_DRAIN_GRACE_S"
+
+# The learning-health detectors whose firing makes a window bad for the
+# rollback policy: divergence signals only (a stalled pipeline or an SLO
+# breach is no reason to rewind the weights).
+TRIGGER_DETECTORS = ("nonfinite_loss", "grad_explosion", "entropy_collapse")
+
+# Windows the policy stays quiet after a rollback (not a config field, as in
+# JAX). Poisoned fragments still quarantine during the cooldown; only the
+# bad-window count freezes.
+COOLDOWN_WINDOWS = 2
 
 
 def _sigsafe_write(message: str) -> None:
@@ -264,3 +284,120 @@ def scripted_preempt() -> bool:
     else:
         coordinator.request(signal.SIGTERM, reason="scripted preempt fault")
     return True
+
+
+# ------------------------------------------------------- rollback policy
+
+
+@dataclasses.dataclass(frozen=True)
+class RollbackAction:
+    """The policy's verdict on one bad window. ``kind``:
+
+    - ``"quarantine"``: void the fragments in flight (produced under, or
+      poisoned by, the diverging state). Fired on every bad window, during
+      the cooldown too.
+    - ``"rollback"``: restore the last good checkpoint, fold the actor seed
+      cursor, republish. Fired on the ``bad_windows``-th consecutive bad
+      window, at most ``max_attempts`` times.
+    - ``"abort"``: attempts exhausted; the trainer stops and raises.
+    """
+
+    kind: str
+    detail: str
+    detectors: tuple[str, ...] = ()
+    attempts: int = 0
+
+    def event(self) -> dict[str, Any]:
+        """The time-series annotation of the action (``kind=event``)."""
+        return {
+            "event_type": "rollback",
+            "action": self.kind,
+            "detail": self.detail,
+            "detectors": list(self.detectors),
+            "attempts": self.attempts,
+        }
+
+
+class RollbackPolicy:
+    """The divergence policy of one run, window by window.
+
+    Called on the window-close thread only (the trainer's drain), without
+    a lock, as ``HealthMonitor`` and ``ElasticController`` are. The caller
+    hands it the health events fired in the window and the checkpointer's
+    newest retained step; the policy keeps the newest step retained at a
+    clean window (``last_good_step``), so that a rollback never restores a
+    checkpoint written while the run already diverged.
+    """
+
+    def __init__(self, bad_windows: int, max_attempts: int,
+                 cooldown_windows: int = COOLDOWN_WINDOWS,
+                 triggers: Sequence[str] = TRIGGER_DETECTORS):
+        if bad_windows < 1:
+            raise ValueError(f"rollback_bad_windows must be >= 1 to arm: {bad_windows}")
+        if max_attempts < 1:
+            raise ValueError(f"rollback_max_attempts must be >= 1: {max_attempts}")
+        if cooldown_windows < 0:
+            raise ValueError(f"cooldown_windows must be >= 0: {cooldown_windows}")
+        self.bad_windows = bad_windows
+        self.max_attempts = max_attempts
+        self.cooldown_windows = cooldown_windows
+        self.triggers = frozenset(triggers)
+        self.attempts = 0  # restores over the run's life, carried across a resume
+        self.last_good_step: int | None = None
+        self._bad_run = 0
+        self._cooldown = 0
+
+    def on_window(self, events: Sequence[Any],
+                  latest_step: int | None = None) -> RollbackAction | None:
+        """Judge one closed window by the events fired in it (not the
+        monitor's decaying verdict set); ``latest_step`` becomes the last
+        good step only on a clean window."""
+        fired = sorted({e.detector for e in events
+                        if getattr(e, "detector", None) in self.triggers})
+        if self._cooldown > 0:
+            self._cooldown -= 1
+            if fired:
+                # Still diverging in the cooldown: the count stays frozen
+                # (the restored run needs clean windows before a new verdict
+                # means anything), but the poisoned data quarantines.
+                return RollbackAction(
+                    kind="quarantine",
+                    detail=(f"divergence signals during rollback cooldown "
+                            f"({self._cooldown + 1} window(s) left): {fired}"),
+                    detectors=tuple(fired),
+                    attempts=self.attempts,
+                )
+            return None
+        if not fired:
+            self._bad_run = 0
+            if latest_step is not None:
+                # A clean window: every step retained so far is good.
+                self.last_good_step = int(latest_step)
+            return None
+        self._bad_run += 1
+        if self._bad_run < self.bad_windows:
+            return RollbackAction(
+                kind="quarantine",
+                detail=(f"bad window {self._bad_run}/{self.bad_windows}: {fired} — "
+                        "NaN-guard holds the params, in-flight fragments quarantine"),
+                detectors=tuple(fired),
+                attempts=self.attempts,
+            )
+        self._bad_run = 0
+        self.attempts += 1
+        if self.attempts > self.max_attempts:
+            return RollbackAction(
+                kind="abort",
+                detail=(f"divergence persisted through {self.max_attempts} rollback(s); "
+                        f"aborting with forensics: {fired}"),
+                detectors=tuple(fired),
+                attempts=self.attempts,
+            )
+        self._cooldown = self.cooldown_windows
+        return RollbackAction(
+            kind="rollback",
+            detail=(f"{self.bad_windows} consecutive bad window(s) ({fired}); rolling back "
+                    f"to last-good checkpoint (attempt {self.attempts}/{self.max_attempts})"),
+            detectors=tuple(fired),
+            attempts=self.attempts,
+        )

@@ -716,6 +716,25 @@ RESUME_DIR = Path(__file__).resolve().parent / "chip_smoke_resume"
 RESUME_RUN_STATE_KEYS = ["actor_restarts", "actors_live", "gateway_restarts", "next_actor_seed",
                          "rollback_attempts", "server_restarts", "updates", "window_idx"]
 RESUME_EVENT_KEYS = ["actors", "env_steps", "event_type", "restored_update", "t"]
+# The divergence rollback (rollback_sebulba_pong_impala): pong_impala on the
+# host path at full width as the resume phase runs it (4 actor threads with
+# their own inference, log_every=2), with the NaN guard and the policy armed
+# (2 bad windows in a row restore, at most 3 restores), a checkpoint every 2
+# update calls, and the JAX package's end-to-end corrupt burst: from the 17th
+# fragment hand-off, 12 fragments' rewards turn NaN through the staging row.
+# It runs inside the learning workers' block, where the main process would
+# otherwise wait for them. Every gate is a count, an equality or a
+# bit-identity, plus the phase's budget; the guard's cost is printed.
+ROLLBACK_UPDATES = 48
+ROLLBACK_LOG_EVERY = 2
+ROLLBACK_FAULTS = "actor.queue_put:corrupt:1.0:0:max=12,after=16"
+ROLLBACK_BYTES = 512 << 20
+ROLLBACK_PHASE_S = 30.0
+ROLLBACK_TIMED = 10  # timed updates, guard armed and off, on one fragment
+ROLLBACK_DIR = Path(__file__).resolve().parent / "chip_smoke_ckpt" / "rollback"
+# JAX's rollback annotation keys (asyncrl_tpu/runtime/durability.py), with
+# the store's stamp.
+ROLLBACK_EVENT_KEYS = ["action", "attempts", "detail", "detectors", "event_type", "t"]
 # cartpole_a3c_cpu (backend="cpu_async": 4 actor threads of one CartPole env,
 # A3C, everything on the CPU) for its 200,000 steps in a spawned process on
 # one torch thread; its greedy eval (16 episodes, max_steps=500) must be
@@ -4296,6 +4315,225 @@ def resume_phase() -> dict:
     return row
 
 
+def _guard_check(agent, frag) -> dict:
+    """The NaN guard on the card, from the phase's final state, on one clean
+    drained fragment ``frag`` and a copy with ``rewards[0, 0] = NaN``:
+    armed on the copy, the state's digest and both counters are unchanged,
+    ``nonfinite_skip`` is 1 and B1 launches once; armed on ``frag``, the
+    weights are the unarmed update's from the same state, bit for bit. The
+    ms per update of each, on ``frag``, printed."""
+    from asyncrl_tpu_torch.learn.rollout_learner import RolloutLearner
+    from asyncrl_tpu_torch.rollout.buffer import rollout_map
+    from asyncrl_tpu_torch.utils.checkpoint import content_digest, state_dict
+
+    armed = agent.learner
+    off = RolloutLearner(armed.config.replace(rollback_bad_windows=0), agent.spec, agent.model)
+    if not armed.nan_guard or off.nan_guard:
+        raise AssertionError("rollback: the guard is not armed in the trainer's learner")
+    poisoned = rollout_map(torch.clone, frag)
+    poisoned.rewards[0, 0] = float("nan")
+    if not bool(torch.isfinite(frag.rewards).all()):
+        raise AssertionError("rollback: the captured fragment is not finite")
+    state = clone_learner_state(agent.state)
+    before = (content_digest(state_dict(state)), state.update_step, state.opt_state.count)
+    reset_counters()
+    state, metrics = armed.update(state, poisoned)
+    torch.cuda.synchronize()
+    after = (content_digest(state_dict(state)), state.update_step, state.opt_state.count)
+    skip = float(metrics["nonfinite_skip"])
+    nan_launches = counters()
+    if (after != before or skip != 1.0
+            or nan_launches != {k: int(k == "fused_vtrace") for k in KERNELS}):
+        raise AssertionError(f"rollback guard on the poisoned copy: state {before} -> {after}, "
+                             f"nonfinite_skip {skip}, launches {nan_launches}")
+    armed_state, m_armed = armed.update(clone_learner_state(agent.state), frag)
+    off_state, m_off = off.update(clone_learner_state(agent.state), frag)
+    torch.cuda.synchronize()
+    armed_sha, off_sha = params_sha256(armed_state), params_sha256(off_state)
+    if (armed_sha != off_sha or float(m_armed["nonfinite_skip"]) != 0.0
+            or "nonfinite_skip" in m_off or armed_sha == params_sha256(agent.state)):
+        raise AssertionError(f"rollback guard on the clean fragment: armed {armed_sha}, off "
+                             f"{off_sha}, metrics {sorted(m_armed)} / {sorted(m_off)}")
+    ms = {}
+    for name, learner, st in (("armed", armed, armed_state), ("off", off, off_state)):
+        ms[name] = time_ms(lambda learner=learner, st=st: learner.update(st, frag),
+                           reps=ROLLBACK_TIMED, trials=3)
+    return {"poisoned_state_sha256_unchanged": True, "nonfinite_skip": skip,
+            "poisoned_launches": nan_launches, "clean_weights_sha256_equal_unarmed": True,
+            "ms_per_update_armed": ms["armed"], "ms_per_update_off": ms["off"],
+            "guard_ms_per_update": ms["armed"] - ms["off"]}
+
+
+def rollback_phase() -> dict:
+    """The divergence rollback on the card (see ``ROLLBACK_*``). Gates: at
+    least one quarantine and one restore and no abort; the last window's
+    ``nonfinite_skips`` above 0 and its loss finite; the weights right after
+    each restore those of the retained step it targeted (SHA-256), no step
+    newer than it left on disk; the final checkpoint's ``rollback_attempts``
+    the policy's; one ``rollback`` event with JAX's keys an action and a
+    ``rollback.rollback`` dump (the recorder debounces a reason); the health
+    verdict ok; B1 once an
+    update, skipped ones included, and no other kernel; device memory grown
+    by less than ``ROLLBACK_BYTES``; the phase within ``ROLLBACK_PHASE_S``;
+    and ``_guard_check``."""
+    import asyncrl_tpu_torch
+    from asyncrl_tpu_torch.configs import presets
+    from asyncrl_tpu_torch.obs import flightrec, trace
+    from asyncrl_tpu_torch.obs import registry as obs_registry
+    from asyncrl_tpu_torch.rollout.buffer import rollout_map
+    from asyncrl_tpu_torch.utils import faults
+    from asyncrl_tpu_torch.utils.checkpoint import STATE_FILE, Checkpointer, _step_dir
+
+    phase = "rollback_sebulba_pong_impala"
+    phase_t0 = time.perf_counter()
+    shutil.rmtree(ROLLBACK_DIR, ignore_errors=True)
+    ckpt_dir, run_dir = str(ROLLBACK_DIR / "ckpt"), str(ROLLBACK_DIR / "run")
+    overrides = {**HOST_PONG, "host_pool": "native", "log_every": ROLLBACK_LOG_EVERY,
+                 "eval_every": 0, "checkpoint_dir": ckpt_dir, "checkpoint_every": 2,
+                 "rollback_bad_windows": 2, "rollback_max_attempts": 3, "run_dir": run_dir,
+                 "obs_http_port": -1, "health_stall_frac": 1.0, "health_fps_collapse": 0.0,
+                 "trace": True, "fault_spec": ROLLBACK_FAULTS}
+    cfg = presets.pong_impala.replace(device="cuda", **overrides)
+    try:
+        torch.cuda.synchronize()
+        memory_before = torch.cuda.memory_allocated()
+        agent = asyncrl_tpu_torch.make_agent(cfg)
+        try:
+            target = ROLLBACK_UPDATES * agent._envs_per_actor * cfg.unroll_len
+            windows, restores, first = [], [], {}
+            learner_update = agent.learner.update
+
+            def update(state, rollout, perms=None):
+                # The first drained fragment, put by an actor before the
+                # burst (the queue is first in, first out).
+                if not first:
+                    first["rollout"] = rollout_map(torch.clone, rollout)
+                return learner_update(state, rollout, perms)
+
+            execute = agent._execute_rollback
+            ckpt = agent._ckpt.checkpointer
+
+            def timed_rollback(action):
+                ckpt.wait()
+                steps = sorted(ckpt.all_steps())
+                # The step the trainer targets: the newest at or before the
+                # last good one, else the oldest retained.
+                good = agent._rollback.last_good_step
+                kept = [s for s in steps if good is not None and s <= good]
+                aim = kept[-1] if kept else (steps[0] if steps else None)
+                t = time.perf_counter()
+                execute(action)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t)
+                left = sorted(ckpt.all_steps())
+                row = {"window": len(windows), "steps_before": steps, "last_good": good,
+                       "target": aim, "steps_after": left, "restore_ms": ms,
+                       "update_step": agent.state.update_step, "updates": agent._updates}
+                if aim is not None:
+                    flat = torch.load(os.path.join(_step_dir(ckpt_dir, aim), STATE_FILE),
+                                      weights_only=True)
+                    row["sha256_equal"] = (_flat_params_sha256(flat)
+                                           == params_sha256(agent.state))
+                restores.append(row)
+
+            agent.learner.update = update
+            agent._execute_rollback = timed_rollback
+            reset_counters()
+            t0 = time.perf_counter()
+            agent.train(total_env_steps=target, callback=windows.append)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            launches = counters()
+            updates = agent._updates
+            counts = {k: obs_registry.counter(k).value() for k in (
+                "rollback_quarantine", "rollback_restores", "rollback_abort",
+                "rollback_quarantined")}
+            attempts = agent._rollback.attempts
+            verdict = agent._obs.monitor.verdict()
+            agent.learner.update = learner_update
+            guard = _guard_check(agent, first["rollout"])
+        finally:
+            agent.close()
+            faults.disarm()
+            trace.configure(False)
+            flightrec.disarm()
+        torch.cuda.synchronize()
+        memory_after = torch.cuda.memory_allocated()
+        with Checkpointer(ckpt_dir, create=False) as ck:
+            run_state = ck.read_meta().get("run_state") or {}
+        last = windows[-1]
+        if not (counts["rollback_quarantine"] >= 1 and counts["rollback_restores"] >= 1
+                and counts["rollback_abort"] == 0 and len(restores) == counts["rollback_restores"]
+                and last.get("nonfinite_skips", 0) > 0 and math.isfinite(last["loss"])):
+            raise AssertionError(f"{phase}: counters {counts}, restores {restores}, last window "
+                                 f"nonfinite_skips {last.get('nonfinite_skips')} loss "
+                                 f"{last['loss']}")
+        for row in restores:
+            if (row["target"] is None or not row.get("sha256_equal")
+                    or row["update_step"] != row["target"]
+                    or any(s > row["target"] for s in row["steps_after"])):
+                raise AssertionError(f"{phase}: restore {row}")
+        if run_state.get("rollback_attempts") != attempts or attempts != len(restores):
+            raise AssertionError(f"{phase}: final run_state {run_state}, policy attempts "
+                                 f"{attempts}, restores {len(restores)}")
+        events = []
+        with open(Path(run_dir) / "timeseries.jsonl") as f:
+            for line in f:
+                doc = json.loads(line)
+                if doc.get("kind") == "event" and doc["event"].get("event_type") == "rollback":
+                    events.append(doc["event"])
+        dumps = [json.loads(p.read_text())["reason"]
+                 for p in Path(run_dir).glob("flightrec-*.json")]
+        actions = [e["action"] for e in events]
+        if (any(sorted(e) != ROLLBACK_EVENT_KEYS for e in events)
+                or actions.count("rollback") != len(restores)
+                or actions.count("quarantine") != counts["rollback_quarantine"]
+                or not 1 <= dumps.count("rollback.rollback") <= len(restores)):
+            raise AssertionError(f"{phase}: events {events}, dumps {dumps}")
+        if verdict.get("status") != "ok":
+            raise AssertionError(f"{phase}: health verdict {verdict}")
+        expected = {k: updates * (k == "fused_vtrace") for k in KERNELS}
+        if launches != expected:
+            raise AssertionError(f"{phase}: launched {launches} in {updates} updates, "
+                                 f"expected {expected}")
+        if memory_after - memory_before >= ROLLBACK_BYTES:
+            raise AssertionError(f"{phase}: device memory grew {memory_after - memory_before} "
+                                 f"bytes, bound {ROLLBACK_BYTES}")
+    finally:
+        shutil.rmtree(ROLLBACK_DIR, ignore_errors=True)
+        try:
+            ROLLBACK_DIR.parent.rmdir()  # CKPT_DIR, unless another phase's files are in it
+        except OSError:
+            pass
+    phase_s = time.perf_counter() - phase_t0
+    if phase_s >= ROLLBACK_PHASE_S:
+        raise AssertionError(f"{phase}: {phase_s:.1f} s, budget {ROLLBACK_PHASE_S} s")
+    restore_at = restores[0]["window"]
+    fps = [w["fps"] for w in windows]
+    row = {
+        "phase": phase, "preset": "pong_impala",
+        "overrides": {**overrides, "checkpoint_dir": "<ROLLBACK_DIR>/ckpt",
+                      "run_dir": "<ROLLBACK_DIR>/run"},
+        "ranks": 1, "target_updates": ROLLBACK_UPDATES,
+        "launches_per_update": {"fused_vtrace": 1}, "launches": launches, "updates": updates,
+        "counters": counts, "attempts": attempts, "restores": restores,
+        "run_state": run_state, "events": actions, "flightrec_reasons": sorted(set(dumps)),
+        "nonfinite_skips_by_window": [w.get("nonfinite_skips") for w in windows],
+        "loss_by_window": [w["loss"] for w in windows],
+        "loss_last": last["loss"], "guard": guard,
+        "env_steps_per_s_before_restore": statistics.mean(fps[:restore_at]) if restore_at
+        else None,
+        "env_steps_per_s_after_restore": statistics.mean(fps[restore_at:]),
+        "train_s": train_s, "device_bytes_before": memory_before,
+        "device_bytes_after": memory_after, "health_verdict": verdict, "phase_s": phase_s,
+        "phase_budget_s": ROLLBACK_PHASE_S,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "kernel_device_ms": {"fused_vtrace": None, "ring_all_reduce": None},
+    }
+    log(f"train {phase}: " + json.dumps(row, default=str))
+    return row
+
+
 def mujoco_presets_line() -> None:
     """The MuJoCo presets run through gymnasium, which this script does not
     drive: the line says why they were skipped, and no number."""
@@ -5034,6 +5272,9 @@ def checks_and_phases() -> dict:
         phase("checkpoint_round_trip pong_selfplay_lstm", checkpoint_round_trip,
               "pong_selfplay", {"core": "lstm"})
         phase("selfplay_promotion", selfplay_promotion)
+        # In the learning workers' shadow: the main process would wait for
+        # them here anyway.
+        trains.append(phase("rollback_sebulba_pong_impala", rollback_phase))
         phase("learning_lines", learning_lines, workers)
 
     scan_err = {

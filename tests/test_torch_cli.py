@@ -58,8 +58,11 @@ def test_override_parses_later_knobs_by_their_jax_default():
     cfg = tpresets.pong_impala
     assert override(cfg, ["inference_server=false", "serve=true", "replay_slabs=0",
                           "drain_grace_s=30", "gateway_host=127.0.0.1"]) == cfg
-    with pytest.raises(NotImplementedError, match=r"item 14\(f2\)"):
-        override(cfg, ["rollback_bad_windows=2"])
+    with pytest.raises(NotImplementedError, match="no counterpart"):
+        override(cfg, ["smap_check=off"])
+    # The divergence rollback's knobs are fields now.
+    assert override(cfg, ["rollback_bad_windows=2", "rollback_max_attempts=4"]) == cfg.replace(
+        rollback_bad_windows=2, rollback_max_attempts=4)
     # The resume knob is a field now.
     assert override(cfg, ["resume=true"]) == cfg.replace(resume=True)
     # The tracing knobs are fields now.
@@ -80,7 +83,7 @@ def test_override_parses_later_knobs_by_their_jax_default():
         override(cfg, ["donate_buffers=yes"])
     # Every later knob's JAX default, written as a string, parses back to it.
     jcfg = JConfig()
-    for key, (default, _) in LATER_KNOBS.items():
+    for key, default in LATER_KNOBS.items():
         raw = ",".join(map(str, default)) if isinstance(default, tuple) else str(default)
         assert override(cfg, [f"{key}={raw}"]) == cfg, key
         assert getattr(joverride(jcfg, [f"{key}={raw}"]), key) == default, key

@@ -282,10 +282,13 @@ def test_config_refuses_what_is_not_ported():
     cfg = tpresets.pong_impala
     assert cfg.replace(core="ff", backend="tpu") == cfg  # JAX defaults: accepted
     # The gymnasium envs run on the host path only; the MinAtar games are
-    # ported; the divergence rollback comes with Queue A item 14(f2).
-    for knob in ({"rollback_bad_windows": 2}, {"env_id": "Ant-v5"}, {"algo": "ddpg"}):
+    # ported.
+    for knob in ({"env_id": "Ant-v5"}, {"algo": "ddpg"}):
         with pytest.raises(NotImplementedError):
             cfg.replace(**knob)
+    # The divergence rollback's knobs are fields now, accepted off their
+    # defaults (the Anakin trainer ignores them, as JAX's does).
+    assert cfg.replace(rollback_bad_windows=2, rollback_max_attempts=3).rollback_bad_windows == 2
     assert cfg.replace(backend="sebulba", env_id="Ant-v5").env_id == "Ant-v5"
     assert cfg.replace(env_id="JaxSpaceInvaders-v0").env_id == "JaxSpaceInvaders-v0"
     with pytest.raises(ValueError, match="nature_cnn"):
@@ -334,13 +337,13 @@ def off_default(value):
 def test_config_accepts_every_jax_knob_at_its_default():
     """Every field of the JAX Config is a field of the port's or one of its
     LATER_KNOBS, with the JAX default; at that default replace() leaves the
-    config as it was, and off it raises NotImplementedError naming the
-    Queue A item that brings it (or that it has no counterpart)."""
+    config as it was, and off it raises NotImplementedError saying that it
+    has no counterpart."""
     jax_fields = {f.name: f.default for f in dataclasses.fields(JConfig)}
     ours = {f.name: f.default for f in dataclasses.fields(Config)}
     missing = {k: v for k, v in jax_fields.items() if k not in ours}
     assert set(missing) == set(LATER_KNOBS)
-    for name, (default, _) in LATER_KNOBS.items():
+    for name, default in LATER_KNOBS.items():
         assert default == missing[name], name
     # Shared fields keep the JAX default but for the workload's own two.
     for name in set(ours) & set(jax_fields):
