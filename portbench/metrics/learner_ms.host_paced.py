@@ -1,0 +1,8 @@
+"""``learner_ms`` in the cells whose rate the host's issue paces, which report
+``env_steps_per_s.host_paced``: the same reading (``learner_ms.py``)."""
+
+from pathlib import Path
+
+from portbench.cells import load_reader
+
+read = load_reader(Path(__file__).with_name("learner_ms.py"))
